@@ -1,0 +1,289 @@
+"""Transformer building blocks shared by the MVFex and Pose3D stages (the JAX
+package's ``models/layers.py``): FFN, MultiheadAttention, the lazy
+deformable attention, the align-corners resizes, and the weight init.
+
+Layout: feature maps are NCHW; token sequences are (B, L, C). A flax
+``Dense`` that the JAX package applies to an NHWC map becomes a
+:class:`PointwiseConv` here, which keeps Linear's (out, in) weight so the
+weight bridge (``convert.from_flax``) treats every Dense alike. LayerNorms
+use flax's epsilon, 1e-6 (torch's default is 1e-5).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from egorear_tpu_torch.ops.deform_attn import (
+    lazy_deform_sample,
+    lazy_deform_sample_plain,
+)
+
+LN_EPS = 1e-6  # flax nn.LayerNorm default
+
+
+def layer_norm(dims: int) -> nn.LayerNorm:
+    return nn.LayerNorm(dims, eps=LN_EPS)
+
+
+class PointwiseConv(nn.Linear):
+    """A Linear applied along the channel axis of an NCHW map (a 1x1 conv
+    whose weight keeps Linear's (out, in) shape)."""
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight[:, :, None, None], self.bias)
+
+
+def conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
+    """3x3 conv with torch-style explicit symmetric padding 1."""
+    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
+
+
+def add_modules(parent: nn.Module, **modules: nn.Module) -> None:
+    """Register submodules under the JAX package's parameter names (e.g.
+    ``transformer_0``), so the weight bridge maps paths one to one."""
+    for name, m in modules.items():
+        parent.add_module(name, m)
+
+
+class FFN(nn.Module):
+    """(num_fcs - 1) x [Linear -> GELU -> Dropout], then Linear -> Dropout
+    (no residual inside)."""
+
+    def __init__(self, embed_dims: int, feedforward_dims: int,
+                 num_fcs: int = 2, ffn_drop: float = 0.0):
+        super().__init__()
+        self.num_fcs = num_fcs
+        dims = [embed_dims] + [feedforward_dims] * (num_fcs - 1) + [embed_dims]
+        for i in range(num_fcs):
+            self.add_module(f"Dense_{i}", nn.Linear(dims[i], dims[i + 1]))
+        self.drop = nn.Dropout(ffn_drop)
+
+    def forward(self, x):
+        for i in range(self.num_fcs - 1):
+            x = self.drop(F.gelu(getattr(self, f"Dense_{i}")(x)))
+        return self.drop(getattr(self, f"Dense_{self.num_fcs - 1}")(x))
+
+
+class MultiheadAttention(nn.Module):
+    """Batch-first multi-head attention over short token sequences (J = 15
+    or 16): separate q/k/v/out projections, plain softmax attention."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(embed_dim, embed_dim)
+        self.k_proj = nn.Linear(embed_dim, embed_dim)
+        self.v_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+
+    def reset_parameters_(self, gen: torch.Generator) -> None:
+        for lin in (self.q_proj, self.k_proj, self.v_proj, self.out_proj):
+            xavier_uniform_(lin.weight, gen)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, q, k, v):
+        B, Lq, C = q.shape
+        H = self.num_heads
+        hd = C // H
+
+        def heads(x):
+            return x.reshape(B, -1, H, hd).transpose(1, 2)
+
+        _q, _k, _v = heads(self.q_proj(q)), heads(self.k_proj(k)), heads(self.v_proj(v))
+        attn = torch.softmax((_q @ _k.transpose(-2, -1)) * hd**-0.5, dim=-1)
+        out = (attn @ _v).transpose(1, 2).reshape(B, Lq, C)
+        return self.out_proj(out)
+
+
+def deform_offset_bias(n_heads: int, n_points: int) -> torch.Tensor:
+    """Directional ring bias for the sampling offsets (head h points along
+    angle 2*pi*h/n_heads, point p at ring radius p + 1)."""
+    thetas = torch.arange(n_heads, dtype=torch.float32) * (2.0 * math.pi / n_heads)
+    grid = torch.stack([thetas.cos(), thetas.sin()], dim=-1)  # (H, 2)
+    grid = grid / grid.abs().max(dim=-1, keepdim=True).values
+    grid = grid[:, None, :].repeat(1, n_points, 1)  # (H, P, 2)
+    ring = torch.arange(1, n_points + 1, dtype=torch.float32)[None, :, None]
+    return (grid * ring).reshape(-1)
+
+
+class MSDeformAttnLazy(nn.Module):
+    """Deformable attention that samples RAW memory and projects afterwards.
+
+    Identical in value to single-level deformable attention over
+    ``memory = feat @ mem_kernel + mem_bias (+ pos)`` followed by its value
+    projection: linear maps and additive position tables commute with
+    attention-weighted bilinear sampling, so the memory and value
+    projections run on the ~Q*heads sampled vectors instead of the H*W
+    grid. Zero-padded corners mean constants do not sample to themselves at
+    borders, so a ones channel is sampled alongside and scales every constant
+    term (mem_bias, value bias).
+
+    The attribute ``impl`` is ``"kernel"``: sample through
+    :func:`lazy_deform_sample` (the CUDA kernel on a card, the plain version
+    on the CPU). Checks of the kernel set it to ``"plain"`` to run the plain
+    version on the card.
+    """
+
+    def __init__(self, d_model: int = 256, n_heads: int = 8, n_points: int = 16,
+                 pos_block: bool = False):
+        super().__init__()
+        self.d_model, self.n_heads, self.n_points = d_model, n_heads, n_points
+        # Layout of per-group mem_pos tables along the folded batch: False =
+        # INTERLEAVED (element i uses table i % G); True = contiguous BLOCKS
+        # (view-major fold, table i // (N/G)).
+        self.pos_block = pos_block
+        self.impl = "kernel"
+        self.sampling_offsets = nn.Linear(d_model, n_heads * n_points * 2)
+        self.attention_weights = nn.Linear(d_model, n_heads * n_points)
+        # value_proj is applied post-sampling, through its weights only.
+        self.value_proj = nn.Linear(d_model, d_model)
+        self.output_proj = nn.Linear(d_model, d_model)
+
+    def reset_parameters_(self, gen: torch.Generator) -> None:
+        nn.init.zeros_(self.sampling_offsets.weight)
+        with torch.no_grad():
+            self.sampling_offsets.bias.copy_(
+                deform_offset_bias(self.n_heads, self.n_points))
+        nn.init.zeros_(self.attention_weights.weight)
+        nn.init.zeros_(self.attention_weights.bias)
+        for lin in (self.value_proj, self.output_proj):
+            xavier_uniform_(lin.weight, gen)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, query, reference_points, feat_raw, spatial_shape,
+                mem_kernel: Optional[torch.Tensor] = None,
+                mem_bias: Optional[torch.Tensor] = None,
+                mem_pos: Optional[torch.Tensor] = None):
+        """query (B, Q, C); reference_points (B, Q, 2) in [0, 1] (x, y);
+        feat_raw (B, H*W, Cin) raw memory, contiguous; mem_kernel (Cin, C)
+        and mem_bias (C,) the memory projection; mem_pos (H*W, C) shared or
+        (G, H*W, C) per group, laid out per ``pos_block``."""
+        if self.impl not in ("kernel", "plain"):
+            raise ValueError(f"unknown sampling impl {self.impl!r}")
+        B, Q, C = query.shape
+        H, W = spatial_shape
+        nh, P = self.n_heads, self.n_points
+        ch = C // nh
+        Cin = feat_raw.shape[-1]
+
+        offsets = self.sampling_offsets(query).reshape(B, Q, nh, P, 2)
+        weights = self.attention_weights(query).reshape(B, Q, nh, P)
+        weights = torch.softmax(weights, dim=-1)
+        normalizer = torch.tensor([W, H], dtype=offsets.dtype,
+                                  device=offsets.device)
+        loc = reference_points[:, :, None, None, :] + offsets / normalizer
+
+        wv = self.value_proj.weight.t().to(query.dtype)  # (C, C) as x @ wv
+        bv = self.value_proj.bias.to(query.dtype)
+
+        pos = mem_pos.to(feat_raw.dtype) if mem_pos is not None else None
+        sample = lazy_deform_sample if self.impl == "kernel" else lazy_deform_sample_plain
+        s_feat, s_pos, s_one = sample(feat_raw, loc, weights, pos, self.pos_block)
+
+        wv_h = wv.reshape(C, nh, ch)
+        const = bv.reshape(nh, ch)
+        if mem_kernel is not None:
+            km = (mem_kernel.to(query.dtype) @ wv).reshape(Cin, nh, ch)
+            v = torch.einsum("bqnc,cnd->bqnd", s_feat, km)
+            if mem_bias is not None:
+                const = const + (mem_bias.to(query.dtype) @ wv).reshape(nh, ch)
+        else:
+            v = torch.einsum("bqnc,cnd->bqnd", s_feat, wv_h)
+        if s_pos is not None:
+            v = v + torch.einsum("bqnc,cnd->bqnd", s_pos, wv_h)
+        v = v + s_one * const
+        return self.output_proj(v.reshape(B, Q, C))
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_matrix_np(n: int, out_n: int) -> np.ndarray:
+    """(out_n, n) align-corners interpolation rows, weights computed in
+    float64 then stored as float32 (as the JAX package builds them)."""
+    m = np.zeros((out_n, n), np.float32)
+    if n == 1 or out_n == 1:
+        m[:, 0] = 1.0
+    else:
+        pos = np.arange(out_n) * (n - 1) / (out_n - 1)
+        lo = np.floor(pos).astype(int)
+        hi = np.minimum(lo + 1, n - 1)
+        w = (pos - lo).astype(np.float32)
+        m[np.arange(out_n), lo] += 1.0 - w
+        m[np.arange(out_n), hi] += w
+    m.setflags(write=False)
+    return m
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_matrix(n: int, out_n: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    # A normal (not inference-mode) tensor, so a cached matrix first made
+    # under torch.inference_mode() still serves autograd later.
+    with torch.inference_mode(False):
+        return torch.tensor(_interp_matrix_np(n, out_n), dtype=dtype, device=device)
+
+
+def resize_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear align_corners=True resize of an NCHW map to ``out_hw``.
+
+    Two matmuls with the interpolation matrices, as in the JAX package:
+    the weights are exact float64 fractions rounded once to ``x.dtype``,
+    where ``F.interpolate`` computes source positions in float32 and drifts
+    by ~1e-5 on larger maps.
+    """
+    H, W = x.shape[-2:]
+    oh, ow = out_hw
+    if (oh, ow) == (H, W):
+        return x
+    My = _interp_matrix(H, oh, x.dtype, x.device)
+    Mx = _interp_matrix(W, ow, x.dtype, x.device)
+    return torch.matmul(torch.matmul(My, x), Mx.t())
+
+
+def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """Bilinear x2 upsample with align_corners=True (NCHW)."""
+    H, W = x.shape[-2:]
+    return resize_align_corners(x, (2 * H, 2 * W))
+
+
+# -- weight init (random weights from a generator) ---------------------------
+
+
+def xavier_uniform_(w: torch.Tensor, gen: torch.Generator) -> None:
+    fan_out, fan_in = w.shape[0], w.shape[1] * w[0][0].numel()
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        w.uniform_(-bound, bound, generator=gen)
+
+
+def init_weights(model: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Random weights in the JAX package's init scheme, drawn from ``gen``.
+
+    Linear and conv kernels: LeCun normal (std 1/sqrt(fan_in)), zero bias;
+    norms: unit scale, zero shift, unit running variance; modules with a
+    ``reset_parameters_(gen)`` method (attention, deformable attention, the
+    refiner's embeddings) then apply their own scheme. The numbers differ from
+    flax's for the same seed: weights are carried across by ``convert``.
+    """
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                fan_in = m.weight[0].numel()
+                m.weight.normal_(0.0, fan_in**-0.5, generator=gen)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                if isinstance(m, nn.BatchNorm2d):
+                    m.reset_running_stats()
+        for m in model.modules():
+            if hasattr(m, "reset_parameters_"):
+                m.reset_parameters_(gen)
+    return model

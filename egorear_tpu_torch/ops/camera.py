@@ -1,0 +1,170 @@
+"""Calibrated Scaramuzza fisheye camera rig, vectorized over views (the JAX
+package's ``ops/camera.py``: ``CameraRig.from_calib_file``, ``.project`` and
+``fisheye_world2camera``; the synthetic Ego4View rig only).
+
+Reference quirk reproduced on purpose (``chained=True``, the default): the
+reference applies each camera's offset/flip IN PLACE on the shared anchor
+tensor, so the four projections chain:
+
+    FL projects a + (6, 0, 0)
+    FR projects a                     (the -6 offset lands on FL's state)
+    BL projects (-ax - 6, -ay + 37, az)
+    BR projects ( ax + 12, ay,      az)
+
+and the anchors handed back to the 3D offset regressor are the mutated end
+state (a + (12, 0, 0) for the 4-view rig). ``chained=False`` gives the
+geometrically intended independent transforms.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+_EPS = 1e-12
+
+CAMERA_ORDER = (
+    "camera_front_left",
+    "camera_front_right",
+    "camera_back_left",
+    "camera_back_right",
+)
+
+# Per-camera (flip_xy, offset) of the synthetic Ego4View rig, centimeters.
+_SYN_LAYOUT = {
+    "camera_front_left": (False, (6.0, 0.0, 0.0)),
+    "camera_front_right": (False, (-6.0, 0.0, 0.0)),
+    "camera_back_left": (True, (-6.0, 37.0, 0.0)),
+    "camera_back_right": (True, (6.0, 37.0, 0.0)),
+}
+
+
+def default_calib_path() -> str:
+    """``calib/ego4view_rig.json`` at the repository root."""
+    return str(Path(__file__).resolve().parents[2] / "calib" / "ego4view_rig.json")
+
+
+@dataclass(frozen=True)
+class CameraRig:
+    """Stacked calibration constants for V fisheye cameras (fp32 tensors).
+
+    ``sign``/``offset`` hold the *cumulative* affine per view (see the module
+    docstring on chaining).
+    """
+
+    poly_w2c: torch.Tensor  # (V, D) world->cam polynomial, zero padded
+    center: torch.Tensor  # (V, 2) image center (cx, cy) px
+    image_size_hw: torch.Tensor  # (V, 2) (H, W) px
+    sign: torch.Tensor  # (V, 3) cumulative +-1 per axis
+    offset: torch.Tensor  # (V, 3) cumulative offset, cm
+    final_sign: torch.Tensor  # (3,) end-state sign after the last camera
+    final_offset: torch.Tensor  # (3,) end-state offset after the last camera
+    num_views: int = 4
+
+    @staticmethod
+    def from_calib_file(camera_model: str, calib_path: Optional[str] = None,
+                        chained: bool = True,
+                        device=None) -> "CameraRig":
+        """Build the 4-view rig of the reference ``camera_model``
+        ``ego4view_syn`` from a rig JSON (default: the repository's
+        ``calib/ego4view_rig.json``). The stereo-pair and real-world
+        (``ego4view_rw``) rigs are not ported."""
+        if camera_model != "ego4view_syn":
+            raise NotImplementedError(
+                f"camera model {camera_model!r}: only the 4-view synthetic "
+                f"ego4view_syn rig is ported")
+        with open(calib_path or default_calib_path()) as f:
+            rig_data = json.load(f)["cameras"]
+        cameras = CAMERA_ORDER
+
+        polys, centers, sizes = [], [], []
+        max_deg = max(len(rig_data[c]["poly_world2cam"]) for c in cameras)
+        for c in cameras:
+            d = rig_data[c]
+            p = list(d["poly_world2cam"])
+            polys.append(p + [0.0] * (max_deg - len(p)))
+            centers.append(d["center_xy"])
+            sizes.append(d["image_size_hw"])
+
+        # Cumulative per-view affine: p_v = sign_v * a + offset_v.
+        signs, offsets = [], []
+        s = np.ones(3, dtype=np.float64)
+        t = np.zeros(3, dtype=np.float64)
+        for c in cameras:
+            flip, off = _SYN_LAYOUT[c]
+            if chained:
+                if flip:
+                    s = s * np.array([-1.0, -1.0, 1.0])
+                    t = t * np.array([-1.0, -1.0, 1.0])
+                t = t + np.asarray(off)
+            else:
+                s = np.array([-1.0, -1.0, 1.0]) if flip else np.ones(3)
+                t = np.asarray(off, dtype=np.float64)
+            signs.append(s.copy())
+            offsets.append(t.copy())
+        final_sign = signs[-1] if chained else np.ones(3)
+        final_offset = offsets[-1] if chained else np.zeros(3)
+
+        # Round through float32 numpy exactly as the JAX package does.
+        f32 = lambda x: torch.from_numpy(  # noqa: E731
+            np.asarray(x, dtype=np.float32)).to(device)
+        return CameraRig(
+            poly_w2c=f32(polys), center=f32(centers), image_size_hw=f32(sizes),
+            sign=f32(signs), offset=f32(offsets), final_sign=f32(final_sign),
+            final_offset=f32(final_offset), num_views=len(cameras),
+        )
+
+    def camera_relative_points(self, pts3d: torch.Tensor) -> torch.Tensor:
+        """(B, J, 3) device-frame cm points -> (B, V, J, 3) camera-frame cm."""
+        return self.sign[None, :, None, :] * pts3d[:, None] + self.offset[None, :, None, :]
+
+    def project(self, pts3d: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Project device-frame 3D points (B, J, 3), cm, into every view.
+
+        Returns pts2d (B, V, J, 2) in [0, 1], in_fov (B, V, J) bool, and
+        anchors_out (B, J, 3): the anchor state after projection, which in
+        chained mode is the mutated end state the reference regresses
+        offsets against.
+        """
+        pts3d = pts3d.detach()
+        cam_pts = self.camera_relative_points(pts3d)
+        pts2d, in_fov = fisheye_world2camera(
+            cam_pts, self.poly_w2c, self.center, self.image_size_hw)
+        anchors_out = self.final_sign * pts3d + self.final_offset
+        return pts2d, in_fov, anchors_out
+
+
+def fisheye_world2camera(cam_pts: torch.Tensor, poly_w2c: torch.Tensor,
+                         center: torch.Tensor, image_size_hw: torch.Tensor):
+    """Scaramuzza polynomial projection, batched over views.
+
+    cam_pts (..., V, J, 3) camera-frame points; poly_w2c (V, D) coefficients
+    a_i of rho = sum a_i theta^i; center (V, 2) (cx, cy); image_size_hw
+    (V, 2). Returns pts2d (..., V, J, 2) clipped to [0, 1] and the strict
+    in-bounds mask in_fov (..., V, J).
+    """
+    x, y, z = cam_pts[..., 0], cam_pts[..., 1], cam_pts[..., 2]
+    r = torch.sqrt(x * x + y * y)
+    r_safe = torch.clamp(r, min=_EPS)  # the reference divides by an unguarded norm
+    theta = torch.atan(-z / r_safe)
+
+    # Horner evaluation, coefficients low -> high, broadcast over J.
+    deg = poly_w2c.shape[-1]
+    rho = poly_w2c[:, deg - 1][..., None] * torch.ones_like(theta)
+    for i in range(deg - 2, -1, -1):
+        rho = rho * theta + poly_w2c[:, i][..., None]
+
+    u = x / r_safe * rho + center[:, 0][..., None]
+    v = y / r_safe * rho + center[:, 1][..., None]
+    u = u / image_size_hw[:, 1][..., None]
+    v = v / image_size_hw[:, 0][..., None]
+
+    pts2d = torch.stack([u, v], dim=-1)
+    in_fov = (u > 0) & (v > 0) & (u < 1) & (v < 1)
+    return pts2d.clamp(0.0, 1.0), in_fov
