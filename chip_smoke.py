@@ -3,19 +3,30 @@
 
 Run from the repository root with one CUDA card: ``python3 chip_smoke.py``
 (``--profile FILE`` adds a device-time breakdown of the serving forward and
-writes its table to FILE). It imports nothing of JAX and
+of the training step and writes their tables to FILE). It imports nothing of JAX and
 nothing of the JAX package. Phases, one line each or more, every number
 beside the card's name and power limit:
 
   1. build the hand-written kernels from ``egorear_tpu_torch/csrc/`` (nvcc,
      sm_90a) and report the build time;
-  2. hold each kernel against its plain PyTorch version on the card at the
-     flagship shapes, fp32 and bf16, and time kernel, plain version and the
-     library yardstick;
+  2. hold the forward kernel against its plain PyTorch version on the card
+     at the flagship shapes, fp32 and bf16, and time kernel, plain version
+     and the library yardstick;
+  2b. hold the backward kernel against its plain version at the same
+     shapes, fp32 and bf16, with and without ``d_feat``, and time kernel,
+     plain version and the library yardstick;
   3. run the flagship forward (256 px, batch 2, fp32, TF32 off) once through
      the kernels and once through the plain versions, same weights and input;
   4. serve the flagship (256 px, BN folded, bf16, batch 16) through
-     ``entry.build`` and check that the main path launched every kernel.
+     ``entry.build`` and check that the main path launched the forward
+     kernel 7 times per forward;
+  5. take one fp32 training step (256 px, batch 2, TF32 off) through the
+     kernels and one through the plain versions from the same state, and
+     compare gradients, parameters and BN running stats;
+  6. train the flagship as users would (``entry.build_train``, bf16-mixed,
+     batch 32, the configured schedule) and check that every step launched
+     the forward and the backward kernel 7 times each and that the loss
+     falls over the timed steps.
 
 It exits non-zero, without the last line, when there is no card or any phase
 fails. Its last two lines are the per-kernel JSON record and
@@ -26,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -50,6 +62,16 @@ SHAPES = {
 LAUNCHES_PER_FORWARD = 4 + 3
 SERVE_BATCH, SERVE_WARMUP, SERVE_TIMED = 16, 3, 10
 E2E_BATCH, E2E_HM_TOL, E2E_P3D_TOL = 2, 1e-4, 1e-2
+# Backward kernel vs plain version: max-abs error of each gradient over that
+# gradient's largest plain value (fp32: sums in another order, atomics in a
+# varying order; bf16: bf16 inputs read by both, one bf16 rounding of d_feat
+# and d_pos).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# Phase 5: per-leaf gradient error over the leaf's largest plain value.
+TRAIN_GRAD_TOL, TRAIN_GRAD_FLOOR, TRAIN_BATCH = 1e-3, 1e-8, 2
+TRAIN_STAT_TOL = 1e-4  # BN running stats after the step, max-abs
+TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 32, 3, 10
+TRAIN_SIZE, TRAIN_DEVICE = 256, "cuda"  # a CPU rehearsal may shrink them
 
 
 def card_line() -> str:
@@ -98,18 +120,11 @@ def sample_inputs(shape, dtype, gen):
     return feat, loc, attn_w, pos
 
 
-def lazy_sample_bound_ms(feat, loc, attn_w, pos, pos_block):
-    """Least time for one lazy_deform_sample call on these inputs.
-
-    Bytes: each distinct feature row and pos row that an in-range corner
-    touches, read once; loc and attn_w (fp32, as the kernel reads them) read
-    once; s_feat, s_pos and s_one written once. Operations: one multiply-add
-    (2 flops) per channel per in-range corner, fp32 outside the tensor cores.
-    The larger of the two times at the published H100 peaks.
-    """
+def corner_rows(feat, loc, pos, pos_block):
+    """For these sampling locations: the number of distinct feature rows and
+    pos rows that an in-range corner touches, and of in-range corners."""
     B, HW, Cin = feat.shape
     H = W = int(HW ** 0.5)
-    es = feat.element_size()
     C = pos.shape[-1] if pos is not None else 0
     G = pos.shape[0] if pos is not None else 1
     x = loc[..., 0].float() * W - 0.5
@@ -129,13 +144,56 @@ def lazy_sample_bound_ms(feat, loc, attn_w, pos, pos_block):
             pos_rows.append((g * HW + cell)[ok])
     n_feat = int(torch.unique(torch.cat(feat_rows)).numel())
     n_pos = int(torch.unique(torch.cat(pos_rows)).numel()) if C else 0
-    rows_out = attn_w.numel() // attn_w.shape[-1]
-    nbytes = (n_feat * Cin * es + n_pos * C * es + loc.numel() * 4
-              + attn_w.numel() * 4 + rows_out * (Cin + C + 1) * es)
-    flops = 2 * n_corners * (Cin + C + 1)
+    return n_feat, n_pos, n_corners
+
+
+def _bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def lazy_sample_bound_ms(feat, loc, attn_w, pos, pos_block):
+    """Least time for one lazy_deform_sample call on these inputs.
+
+    Bytes: each distinct feature row and pos row that an in-range corner
+    touches, read once; loc and attn_w (fp32, as the kernel reads them) read
+    once; s_feat, s_pos and s_one written once. Operations: one multiply-add
+    (2 flops) per channel per in-range corner, fp32 outside the tensor cores.
+    The larger of the two times at the published H100 peaks.
+    """
+    Cin, es = feat.shape[-1], feat.element_size()
+    C = pos.shape[-1] if pos is not None else 0
+    n_feat, n_pos, n_corners = corner_rows(feat, loc, pos, pos_block)
+    rows_out = attn_w.numel() // attn_w.shape[-1]
+    nbytes = (n_feat * Cin * es + n_pos * C * es + loc.numel() * 4
+              + attn_w.numel() * 4 + rows_out * (Cin + C + 1) * es)
+    return _bound(nbytes, 2 * n_corners * (Cin + C + 1))
+
+
+def lazy_sample_backward_bound_ms(feat, loc, attn_w, pos, pos_block,
+                                  need_feat):
+    """Least time for one lazy_deform_sample backward on these inputs.
+
+    Bytes: the upstream gradients g_feat, g_pos, g_one read once; the
+    distinct feature and pos rows that an in-range corner touches, loc and
+    attn_w (fp32) read once; d_feat written once in full when it is wanted,
+    d_pos in full, d_loc and d_attn_w (fp32) once. Operations: per in-range
+    corner and channel one multiply-add for the adjoint A and one for each
+    wanted scatter (d_feat, d_pos), fp32.
+    """
+    B, HW, Cin = feat.shape
+    es = feat.element_size()
+    C = pos.shape[-1] if pos is not None else 0
+    G = pos.shape[0] if pos is not None else 0
+    n_feat, n_pos, n_corners = corner_rows(feat, loc, pos, pos_block)
+    rows = attn_w.numel() // attn_w.shape[-1]
+    nbytes = (rows * (Cin + C + 1) * es + n_feat * Cin * es + n_pos * C * es
+              + loc.numel() * 4 + attn_w.numel() * 4
+              + (B * HW * Cin * es if need_feat else 0) + G * HW * C * es
+              + loc.numel() * 4 + attn_w.numel() * 4)
+    flops = 2 * n_corners * (Cin + C + (Cin if need_feat else 0) + C)
+    return _bound(nbytes, flops)
 
 
 def max_err(got, want):
@@ -199,6 +257,97 @@ def phase_kernels(card):
                 record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by,
                               library_ms=library_ms)
+    return record
+
+
+def grad_inputs(feat, loc, pos, gen):
+    """Seeded upstream gradients of one lazy_deform_sample call."""
+    B, Q, nh = loc.shape[:3]
+    dev, dtype = feat.device, feat.dtype
+    g_feat = torch.randn(B, Q, nh, feat.shape[-1], generator=gen, device=dev).to(dtype)
+    g_pos = (torch.randn(B, Q, nh, pos.shape[-1], generator=gen, device=dev).to(dtype)
+             if pos is not None else None)
+    g_one = torch.randn(B, Q, nh, 1, generator=gen, device=dev).to(dtype)
+    return g_feat, g_pos, g_one
+
+
+def grid_sample_backward_ms(feat, loc, pos, shape):
+    """Library yardstick of the backward: the autograd backward of one
+    F.grid_sample over [feat | pos | ones] with gradients on the input and
+    the grid; only the backward is timed."""
+    import torch.nn.functional as F
+
+    B, HW, Cin = feat.shape
+    side = int(HW ** 0.5)
+    parts = [feat]
+    if pos is not None:
+        parts.append(pos.repeat_interleave(B // pos.shape[0], dim=0))
+    parts.append(feat.new_ones(B, HW, 1))
+    buf = torch.cat(parts, -1).reshape(B, side, side, -1).permute(
+        0, 3, 1, 2).contiguous().requires_grad_()
+    grid = (2 * loc - 1).reshape(B, -1, shape["P"], 2).to(feat.dtype).requires_grad_()
+    out = F.grid_sample(buf, grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=False)
+    g_out = torch.randn_like(out)
+    return time_ms(lambda: torch.autograd.grad(out, (buf, grid), g_out,
+                                               retain_graph=True))
+
+
+def phase_backward_kernels(card):
+    """Backward kernel vs plain version on the card at both flagship shapes."""
+    from egorear_tpu_torch.ops.deform_attn import (
+        lazy_deform_sample_backward, lazy_deform_sample_backward_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    record = None
+    names = ("d_feat", "d_loc", "d_attn_w", "d_pos")
+    for name, shape in SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            feat, loc, attn_w, pos = sample_inputs(shape, dtype, gen)
+            g_feat, g_pos, g_one = grad_inputs(feat, loc, pos, gen)
+            block = pos is not None
+            library_ms = grid_sample_backward_ms(feat, loc, pos, shape)
+            f32 = lambda t: t.float() if t is not None else None  # noqa: E731
+            for need_feat in (True, False):
+                args = (feat, loc, attn_w, pos, block, g_feat, g_pos, g_one,
+                        need_feat)
+                got = lazy_deform_sample_backward(*args)
+                torch.cuda.synchronize()
+                # The oracle runs in fp32 on the same (possibly bf16) inputs.
+                want = lazy_deform_sample_backward_plain(
+                    feat.float(), loc, attn_w, f32(pos), block, g_feat.float(),
+                    f32(g_pos), g_one.float(), need_feat)
+                errs, abs_errs = {}, []
+                for n, g, w in zip(names, got, want):
+                    if (g is None) != (w is None):
+                        raise AssertionError(f"backward {n}: kernel and plain "
+                                             f"version disagree on presence")
+                    if w is None:
+                        continue
+                    scale = float(w.abs().max())
+                    err = float((g.float() - w).abs().max())
+                    errs[n] = err / max(scale, 1e-30)
+                    abs_errs.append(err)
+                    if not err <= BWD_TOL[dtype] * scale:
+                        raise AssertionError(
+                            f"lazy_deform_sample backward {name} {dtype} {n}: "
+                            f"max-abs {err:.3e} > {BWD_TOL[dtype]:g} x {scale:.3e}")
+                ms = time_ms(lambda: lazy_deform_sample_backward(*args))
+                plain_ms = time_ms(lambda: lazy_deform_sample_backward_plain(*args))
+                bound_ms, bound_by = lazy_sample_backward_bound_ms(
+                    feat, loc, attn_w, pos, block, need_feat)
+                err_txt = " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+                print(f"[2b] lazy_deform_sample_bwd {name} {str(dtype)[6:]} "
+                      f"B={shape['B']} d_feat={'yes' if need_feat else 'no'}: "
+                      f"max-abs/scale {err_txt} (tol {BWD_TOL[dtype]:g}) "
+                      f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+                      f"({bound_by}) | {card}", flush=True)
+                # The record: the refiner call of the bf16 training step.
+                if name == "mvfex" and dtype == torch.bfloat16 and not need_feat:
+                    record = dict(max_abs_err=max(abs_errs), ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=library_ms)
     return record
 
 
@@ -334,27 +483,261 @@ def profile_serving(model, rig, img, card, path: str, n: int = 3):
         for _ in range(n):
             model(img, rig)
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    total = sum(e.self_device_time_total for e in events)
+    events, total = _device_table(prof, card, path, "w")
     if total <= 0:
         print(f"[4] profile: the profiler saw no device time | {card}")
         return
     lazy = sum(e.self_device_time_total for e in events
                if "lazy_deform_sample" in e.key)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(f"{card}\n")
-        f.write(events.table(sort_by="self_device_time_total", row_limit=40))
     print(f"[4] profile over {n} forwards: device busy {total / n / 1e3:.3f} "
           f"ms/forward, lazy_deform_sample {lazy / n / 1e3:.4f} ms/forward "
           f"({100 * lazy / total:.2f}% of device time) | {card}", flush=True)
+
+
+def train_batch(B, size, gen, dtype=torch.float32):
+    """A seeded stage-3 batch of the reference's pose3d contract: 4 views of
+    ``size`` px, the 16-joint 3D pose in cm and 15-joint per-view heatmaps
+    at 1/4 resolution."""
+    h = size // 4
+    img = torch.randn(B, 4, 3, size, size, generator=gen, device=TRAIN_DEVICE)
+    u = torch.rand(B, 16, 3, generator=gen, device=TRAIN_DEVICE)
+    lo = torch.tensor([-60.0, -60.0, -20.0], device=TRAIN_DEVICE)
+    hi = torch.tensor([60.0, 60.0, 80.0], device=TRAIN_DEVICE)
+    gt_hm = torch.rand(B, 4, 15, h, h, generator=gen, device=TRAIN_DEVICE)
+    return {"img": img.to(dtype), "gt_pose": lo + u * (hi - lo),
+            "gt_heatmap": gt_hm}
+
+
+def _adam_param_check(name, got, want, grad, grad_tol, lr, eps=1e-8):
+    """Parameters after one AdamW step from the same state, whose gradients
+    differ by at most ``grad_tol``. The first step moves each element by
+    lr * g / (|g| + eps) (plus the same decay in both runs): where |g| is
+    well above ``grad_tol`` that is lr * sign(g) in both runs, but an element
+    whose gradient lies within ``grad_tol`` of zero may move by up to 2 lr
+    more in one run. The bound per element is lr times the largest change
+    of g / (|g| + eps) over the gradient's tolerance interval, plus fp32
+    rounding. Returns the largest difference where the gradient is
+    determined (|g| > 10 grad_tol) and where it is not."""
+    diff = (got - want).abs()
+    gmin = (grad.abs() - grad_tol).clamp_min(0.0)
+    bound = (lr * (eps * grad_tol / (gmin + eps) ** 2).clamp(max=2.0)
+             + 1e-6 * (1.0 + want.abs()))
+    if not bool((diff <= bound * (1 + 1e-3)).all()):
+        i = int(torch.argmax(diff - bound))
+        raise AssertionError(f"{name}: params after the step differ by "
+                             f"{float(diff.flatten()[i]):.3e} > bound "
+                             f"{float(bound.flatten()[i]):.3e} (gradient "
+                             f"{float(grad.flatten()[i]):.3e})")
+    determined = grad.abs() > 10 * grad_tol
+    tight = float(diff[determined].max()) if bool(determined.any()) else 0.0
+    loose = float(diff[~determined].max()) if bool((~determined).any()) else 0.0
+    return tight, loose
+
+
+def phase_train_check(card):
+    """One fp32 train step through the kernels vs one through the plain
+    versions, from the same state on the same batch."""
+    import copy
+
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.ops.deform_attn import (
+        lazy_deform_sample, lazy_deform_sample_backward)
+    from egorear_tpu_torch.ops.heatmap import argmax_2d
+
+    task, trainer = entry.build_train((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE, "32",
+                                      seed=0, steps_per_epoch=1,
+                                      warmup_iters=1)
+    model = task.model
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(4)
+    batch = train_batch(TRAIN_BATCH, TRAIN_SIZE, gen)
+    # Perturb in train mode, so that the median initial heatmap peak of the
+    # training forward (BN on batch statistics) sits at the threshold.
+    model.train()
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if "running" in k or "num_batches" in k}
+    perturb_(model, batch["img"], gen)
+    model.load_state_dict(stats, strict=False)
+    start = copy.deepcopy(model.state_dict())
+    with torch.no_grad():
+        preds, hms = task.forward(batch["img"])
+    model.load_state_dict(start)
+    valid_2d = float(argmax_2d(hms[0], 0.5, normalize=True)[2].float().mean())
+    valid_3d = float(task.rig.project(preds[0])[1].float().mean())
+    if not (0 < valid_2d < 1 and 0 < valid_3d < 1):
+        raise AssertionError(f"anchors not partly valid (2D {valid_2d}, 3D "
+                             f"{valid_3d}): the check would not see the kernel")
+
+    runs = {}
+    for impl in ("kernel", "plain"):
+        for m in deform_attns(model):
+            m.impl = impl
+        model.load_state_dict(start)
+        trainer.init_state(steps_per_epoch=1)
+        fwd0, bwd0 = lazy_deform_sample.launches, lazy_deform_sample_backward.launches
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        launched = (lazy_deform_sample.launches - fwd0,
+                    lazy_deform_sample_backward.launches - bwd0)
+        runs[impl] = dict(
+            launched=launched, loss=float(metrics["loss_total"]),
+            lr=float(metrics["lr"]),
+            grads={n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            params={n: p.detach().clone() for n, p in model.named_parameters()},
+            stats={k: v.clone() for k, v in model.state_dict().items()
+                   if "running" in k})
+    for m in deform_attns(model):
+        m.impl = "kernel"
+    if runs["kernel"]["launched"] != (LAUNCHES_PER_FORWARD,) * 2:
+        raise AssertionError(f"kernel step launched {runs['kernel']['launched']}"
+                             f" (forward, backward) kernels, expected "
+                             f"{LAUNCHES_PER_FORWARD} each")
+    if runs["plain"]["launched"] != (0, 0):
+        raise AssertionError("the plain step launched a kernel")
+    k, pl = runs["kernel"], runs["plain"]
+    # A leaf whose largest gradient is below TRAIN_GRAD_FLOOR of the model's
+    # largest is zero in exact arithmetic (the key-projection biases, to
+    # which softmax attention is invariant) and holds rounding only: both
+    # runs must keep it below that floor.
+    floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in pl["grads"].values())
+    worst_grad, worst_name, n_floor = 0.0, "", 0
+    worst_tight = worst_loose = 0.0
+    for n, want in pl["grads"].items():
+        scale = float(want.abs().max())
+        got = k["grads"][n]
+        err = float((got - want).abs().max())
+        if scale < floor:
+            n_floor += 1
+            if not float(got.abs().max()) <= floor:
+                raise AssertionError(f"gradient of {n}: {float(got.abs().max()):.3e}"
+                                     f" above the rounding floor {floor:.3e}")
+            grad_tol = floor
+        else:
+            if err / scale > worst_grad:
+                worst_grad, worst_name = err / scale, n
+            if not err <= TRAIN_GRAD_TOL * scale:
+                raise AssertionError(f"gradient of {n}: max-abs {err:.3e} > "
+                                     f"{TRAIN_GRAD_TOL:g} x {scale:.3e}")
+            grad_tol = TRAIN_GRAD_TOL * scale
+        tight, loose = _adam_param_check(n, k["params"][n], pl["params"][n],
+                                         want, grad_tol, pl["lr"])
+        worst_tight, worst_loose = max(worst_tight, tight), max(worst_loose, loose)
+    stat_err = max(float((k["stats"][n] - v).abs().max())
+                   for n, v in pl["stats"].items())
+    if not stat_err <= TRAIN_STAT_TOL:
+        raise AssertionError(f"BN running stats differ by {stat_err:.3e}")
+    print(f"[5] flagship {TRAIN_SIZE}px B={TRAIN_BATCH} fp32 train step kernel vs plain: "
+          f"loss {k['loss']:.6f} vs {pl['loss']:.6f}; worst leaf gradient "
+          f"max-abs/scale {worst_grad:.3e} ({worst_name}, tol "
+          f"{TRAIN_GRAD_TOL:g}; {n_floor} leaves below the rounding floor "
+          f"{floor:.1e}); params after the step {worst_tight:.3e} where "
+          f"the gradient is determined, {worst_loose:.3e} elsewhere (Adam "
+          f"bound 2 lr = {2 * pl['lr']:.1e}); BN running stats "
+          f"{stat_err:.3e} (tol {TRAIN_STAT_TOL:g}); launches (fwd, bwd) "
+          f"{k['launched']}; valid anchors 2D {valid_2d:.3f} 3D "
+          f"{valid_3d:.3f} | {card}", flush=True)
+
+
+def phase_train(card, profile: str | None):
+    """Train the flagship as users would; returns the kernel launch counts
+    of the main path."""
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.ops.deform_attn import (
+        lazy_deform_sample, lazy_deform_sample_backward)
+
+    # The flagship schedule as configured, warmup 500 included: without the
+    # warmup, lr 1e-3 from step 1 overshoots on one fixed random batch (the
+    # loss fell for 2 steps, then rose to 1.9x its start on the H100).
+    task, trainer = entry.build_train((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE,
+                                      "bf16-mixed", seed=0,
+                                      steps_per_epoch=1000)
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(5)
+    batch = train_batch(TRAIN_B, TRAIN_SIZE, gen)
+    torch.cuda.reset_peak_memory_stats()
+    lazy_deform_sample.launches = 0
+    lazy_deform_sample_backward.launches = 0
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        losses.append(trainer.train_step(batch)["loss_total"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        losses.append(trainer.train_step(batch)["loss_total"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_TIMED
+    launches = {"lazy_deform_sample": lazy_deform_sample.launches,
+                "lazy_deform_sample_bwd": lazy_deform_sample_backward.launches}
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    want = steps * LAUNCHES_PER_FORWARD
+    if list(launches.values()) != [want, want]:
+        raise AssertionError(f"{steps} train steps launched {launches}, "
+                             f"expected {want} of each")
+    losses = [float(x) for x in losses]
+    first, last = losses[TRAIN_WARMUP], losses[-1]  # over the timed steps
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        raise AssertionError(f"loss not finite and falling: {losses}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[6] train flagship {TRAIN_SIZE}px bf16-mixed B={TRAIN_B}: "
+          f"{dt * 1e3:.3f} ms/step (host clock, {TRAIN_TIMED} steps after "
+          f"{TRAIN_WARMUP} warm-up, one fixed batch, lr {trainer.lr:g} warmed "
+          f"over {trainer.warmup_iters} steps), {TRAIN_B / dt:.2f} samples/s, "
+          f"peak {peak_gib:.2f} GiB; "
+          f"loss {first:.4f} -> {last:.4f}; launches forward "
+          f"{launches['lazy_deform_sample']} backward "
+          f"{launches['lazy_deform_sample_bwd']} = {steps} x "
+          f"{LAUNCHES_PER_FORWARD} | {card}", flush=True)
+    if profile:
+        profile_train(trainer, batch, card, profile)
+    return launches
+
+
+def _device_table(prof, card, path, mode):
+    events = prof.key_averages()
+    total = sum(e.self_device_time_total for e in events)
+    if total > 0:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, mode) as f:
+            f.write(f"{card}\n")
+            f.write(events.table(sort_by="self_device_time_total", row_limit=40))
+            f.write("\n")
+    return events, total
+
+
+def profile_train(trainer, batch, card, path: str, n: int = 3):
+    """Device time by kernel over ``n`` train steps (torch.profiler), and the
+    device's idle share against the host clock; the table is appended to
+    ``path``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / n * 1e3
+    events, total = _device_table(prof, card, path, "a")
+    if total <= 0:
+        print(f"[6] profile: the profiler saw no device time | {card}")
+        return
+    busy = total / n / 1e3
+
+    def share(key):
+        return sum(e.self_device_time_total for e in events if key in e.key) / n / 1e3
+
+    fwd, bwd = share("lazy_deform_sample_kernel"), share("lazy_deform_sample_bwd_kernel")
+    print(f"[6] profile over {n} train steps: host {host:.3f} ms/step under "
+          f"the profiler, device busy {busy:.3f} ms/step (idle "
+          f"{100 * (1 - busy / host):.1f} %); lazy_deform_sample_kernel "
+          f"{fwd:.4f} ms/step, lazy_deform_sample_bwd_kernel {bwd:.4f} "
+          f"ms/step ({100 * (fwd + bwd) / busy:.2f} % of device time) | {card}",
+          flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
                     help="write a device-time breakdown of the serving "
-                         "forward to FILE")
+                         "forward and of the training step to FILE")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -377,16 +760,26 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    record = phase_kernels(card)
+    records = {"lazy_deform_sample": phase_kernels(card),
+               "lazy_deform_sample_bwd": phase_backward_kernels(card)}
     phase_end_to_end(card)
-    launches = phase_serve(card, args.profile)
+    serve_launches = phase_serve(card, args.profile)
+    phase_train_check(card)
+    launches = phase_train(card, args.profile)
+    print(f"[7] main-path launches: serving forward "
+          f"{serve_launches['lazy_deform_sample']}; training forward "
+          f"{launches['lazy_deform_sample']}, backward "
+          f"{launches['lazy_deform_sample_bwd']} | {card}", flush=True)
 
     print(f"card: {card}")
-    print(json.dumps({"kernels": [dict(
-        name="lazy_deform_sample", route="cuda",
-        source="egorear_tpu_torch/csrc/lazy_deform_sample.cu",
-        replaces="egorear_tpu/ops/deform_attn.py:497",
-        launches=launches["lazy_deform_sample"], **record)]}))
+    print(json.dumps({"kernels": [
+        dict(name=name, route="cuda",
+             source=f"egorear_tpu_torch/csrc/{name}.cu",
+             replaces=("egorear_tpu/ops/deform_attn.py:497"
+                       if name == "lazy_deform_sample" else
+                       "egorear_tpu/ops/deform_attn.py:758"),
+             launches=launches[name], **records[name])
+        for name in ("lazy_deform_sample", "lazy_deform_sample_bwd")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 """Weight bridge: the JAX package's flax variables -> this port's state dict.
 
-Input: ``{"params": ..., "batch_stats": ...}`` (or a BN-folded ``{"params"}``
-tree) as nested dicts of numpy arrays, e.g. ``jax.device_get(variables)``.
+Input: ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
+arrays, e.g. ``jax.device_get(variables)``, or a params-only ``{"params"}``
+tree: a BN-folded model's variables, or gradients (``{"params": grads}``),
+which then map onto the port's parameter names.
 The port's modules carry the flax module names, so a leaf's path maps to a
 state-dict key one to one; only the leaf itself changes:
 
@@ -72,6 +74,24 @@ def from_flax(variables) -> Dict[str, torch.Tensor]:
                 if name == "running_mean":
                     sd[".".join(p[:-1] + ("num_batches_tracked",))] = torch.tensor(0)
     return sd
+
+
+def flax_path(model: nn.Module, key: str) -> str:
+    """The JAX package's flax path (``"a/b/kernel"``) of the port's
+    parameter ``key`` (``"a.b.weight"``): the inverse of :func:`from_flax`'s
+    renaming, with the per-view refiner index folded back into the stacked
+    ``refiners`` subtree."""
+    *mods, leaf = key.split(".")
+    module = model.get_submodule(".".join(mods))
+    if leaf == "weight":
+        if isinstance(module, (nn.LayerNorm, nn.BatchNorm2d)):
+            leaf = "scale"
+        elif isinstance(module, (nn.Linear, nn.Conv2d)):
+            leaf = "kernel"
+    if STACKED in mods[:-1]:
+        i = mods.index(STACKED) + 1
+        mods = mods[:i] + mods[i + 1:]
+    return "/".join(mods + [leaf])
 
 
 def load_flax(model: nn.Module, variables) -> nn.Module:

@@ -8,6 +8,9 @@ conv-downsample 3D proposal, 3 lifting layers) and :func:`build`.
     model, rig = build(bn_folded=True, dtype=torch.bfloat16)   # serving
     with torch.inference_mode():
         preds_3d, heatmaps = model(img, rig)      # img (B, 4, 3, 256, 256)
+
+    task, trainer = build_train(steps_per_epoch=n)  # stage-3 training
+    metrics = trainer.train_step({"img": img, "gt_pose": ..., "gt_heatmap": ...})
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from egorear_tpu_torch.models.configs import EgoRearNetCfg
 from egorear_tpu_torch.models.layers import init_weights
 from egorear_tpu_torch.models.pose3d import EgoRearNet
 from egorear_tpu_torch.ops.camera import CameraRig
+from egorear_tpu_torch.train.tasks import Pose3DTask
+from egorear_tpu_torch.train.trainer import Trainer
 
 FLAGSHIP_CFG = {
     "num_views": 4,
@@ -61,12 +66,17 @@ FLAGSHIP_CFG = {
 }
 
 
-def flagship_cfg(image_size=(256, 256), bn_folded: bool = False) -> EgoRearNetCfg:
-    """The flagship config at ``image_size`` (optionally BN-folded)."""
+def flagship_cfg_dict(image_size=(256, 256), bn_folded: bool = False) -> dict:
+    """The flagship config as a dict at ``image_size`` (optionally BN-folded)."""
     d = copy.deepcopy(dict(FLAGSHIP_CFG, image_size=list(image_size)))
     if bn_folded:
         d["heatmap_mvf_cfg"]["encoder_cfg"]["resnet_cfg"]["bn_folded"] = True
-    return EgoRearNetCfg.from_dict(d)
+    return d
+
+
+def flagship_cfg(image_size=(256, 256), bn_folded: bool = False) -> EgoRearNetCfg:
+    """The flagship config at ``image_size`` (optionally BN-folded)."""
+    return EgoRearNetCfg.from_dict(flagship_cfg_dict(image_size, bn_folded))
 
 
 def build(image_size=(256, 256), device=None, dtype=torch.float32,
@@ -92,3 +102,31 @@ def build(image_size=(256, 256), device=None, dtype=torch.float32,
     model = model.to(device=device, dtype=dtype).eval()
     rig = CameraRig.from_calib_file(cfg.camera_model, device=device)
     return model, rig
+
+
+# configs/ego4view_syn_pose3d.yaml: optimizer, schedule and clipping; the
+# no-decay mask is on for the pose3d task at encoder_lr_scale 1 (run.py).
+FLAGSHIP_OPTIM = dict(lr=1e-3, weight_decay=5e-4, lr_decay_epochs=(8, 10),
+                      warmup_iters=500, gradient_clip_val=5.0,
+                      no_decay_mask=True, encoder_lr_scale=1.0)
+
+
+def build_train(image_size=(256, 256), device=None,
+                precision: str = "bf16-mixed", seed: int = 0, *,
+                steps_per_epoch: int, **optim):
+    """The flagship stage-3 training set-up: ``(Pose3DTask, Trainer)``.
+
+    Random weights from ``seed``, on ``cuda`` unless ``device`` says
+    otherwise (without CUDA this raises). The optimizer follows
+    ``configs/ego4view_syn_pose3d.yaml`` (:data:`FLAGSHIP_OPTIM`); ``optim``
+    overrides any of its keys. ``steps_per_epoch`` (the loader's length)
+    places the lr milestones. The trainer's state is initialised.
+    """
+    device = torch.device("cuda" if device is None else device)
+    task = Pose3DTask(flagship_cfg_dict(image_size), device=device, seed=seed)
+    unknown = set(optim) - set(FLAGSHIP_OPTIM)
+    if unknown:
+        raise TypeError(f"build_train: unknown optimizer settings {sorted(unknown)}")
+    trainer = Trainer(task, precision=precision, **{**FLAGSHIP_OPTIM, **optim})
+    trainer.init_state(steps_per_epoch)
+    return task, trainer

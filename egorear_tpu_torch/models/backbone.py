@@ -1,9 +1,10 @@
 """ResNet-18 + EfficientFPN backbone, NCHW, stride-4 output (the JAX
 package's ``models/backbone.py``).
 
-Convolutions use torch-style explicit symmetric padding; BatchNorm uses
-torch's defaults (eps 1e-5, momentum 0.1). With ``bn_folded`` the convs
-carry the bias that :func:`fold_batchnorm` absorbs and there is no BN.
+Convolutions use torch-style explicit symmetric padding; BatchNorm is
+:class:`BatchNorm2d`, flax's BatchNorm of the JAX package (eps 1e-5, flax
+momentum 0.9, which is torch's 0.1). With ``bn_folded`` the convs carry the
+bias that :func:`fold_batchnorm` absorbs and there is no BN.
 """
 
 from __future__ import annotations
@@ -19,8 +20,33 @@ from egorear_tpu_torch.models.layers import upsample2x_align_corners
 BN_EPS = 1e-5
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with the JAX package's (flax) train-mode semantics.
+
+    In training the output is normalised with the biased batch statistics,
+    as ``nn.BatchNorm2d`` does, but the running variance follows flax: its
+    EMA takes the BIASED batch variance, where torch takes the unbiased one
+    (a factor n/(n-1), 4/3 on the 2x2 stride-32 maps of a 64 px batch of 2
+    views). The statistics are computed in fp32 whatever the input dtype, as
+    flax's ``force_float32_reductions`` does, and the running stats stay
+    fp32. Eval mode is ``nn.BatchNorm2d``'s.
+    """
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 def _bn(channels: int, folded: bool) -> nn.Module:
-    return nn.Identity() if folded else nn.BatchNorm2d(channels, eps=BN_EPS)
+    return nn.Identity() if folded else BatchNorm2d(channels, eps=BN_EPS)
 
 
 class BasicBlock(nn.Module):

@@ -20,10 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from egorear_tpu_torch.ops.deform_attn import (
-    lazy_deform_sample,
-    lazy_deform_sample_plain,
-)
+from egorear_tpu_torch.ops.deform_attn import lazy_deform_sample
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -126,9 +123,9 @@ class MSDeformAttnLazy(nn.Module):
     term (mem_bias, value bias).
 
     The attribute ``impl`` is ``"kernel"``: sample through
-    :func:`lazy_deform_sample` (the CUDA kernel on a card, the plain version
-    on the CPU). Checks of the kernel set it to ``"plain"`` to run the plain
-    version on the card.
+    :func:`lazy_deform_sample` (the CUDA kernels forward and backward on a
+    card, the plain versions on the CPU). Checks of the kernels set it to
+    ``"plain"`` to run the plain versions on the card.
     """
 
     def __init__(self, d_model: int = 256, n_heads: int = 8, n_points: int = 16,
@@ -184,8 +181,9 @@ class MSDeformAttnLazy(nn.Module):
         bv = self.value_proj.bias.to(query.dtype)
 
         pos = mem_pos.to(feat_raw.dtype) if mem_pos is not None else None
-        sample = lazy_deform_sample if self.impl == "kernel" else lazy_deform_sample_plain
-        s_feat, s_pos, s_one = sample(feat_raw, loc, weights, pos, self.pos_block)
+        s_feat, s_pos, s_one = lazy_deform_sample(
+            feat_raw, loc, weights, pos, self.pos_block,
+            plain=self.impl == "plain")
 
         wv_h = wv.reshape(C, nh, ch)
         const = bv.reshape(nh, ch)

@@ -13,12 +13,18 @@ with corners outside the grid contributing zero, where ``buf`` is
 bilinear mass that rescales additive constants (see
 ``models.layers.MSDeformAttnLazy``).
 
-Two versions of one contract:
-  * :func:`lazy_deform_sample_plain` -- PyTorch (``F.grid_sample``). Used for
-    CPU tensors and as the kernel's oracle.
-  * the CUDA kernel ``csrc/lazy_deform_sample.cu``, which :func:`lazy_deform_sample`
-    launches for CUDA tensors. There is no fallback: a CUDA tensor the kernel
-    does not take raises.
+Two versions of one contract, forward and backward:
+  * :func:`lazy_deform_sample_plain` and
+    :func:`lazy_deform_sample_backward_plain` -- PyTorch. Used for CPU
+    tensors and as the kernels' oracles.
+  * the CUDA kernels ``csrc/lazy_deform_sample.cu`` and
+    ``csrc/lazy_deform_sample_bwd.cu``, which :class:`LazyDeformSample`
+    launches for CUDA tensors. There is no fallback: a CUDA tensor the
+    kernels do not take raises.
+
+:func:`lazy_deform_sample` is differentiable on every device: it goes
+through :class:`LazyDeformSample`, whose backward is the analytic VJP of the
+JAX package's ``_lazy_bwd_rule`` (border masks piecewise constant).
 """
 
 from __future__ import annotations
@@ -33,8 +39,11 @@ import torch.nn.functional as F
 from egorear_tpu_torch import kernels
 
 Samples = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]
+Grads = Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor,
+              Optional[torch.Tensor]]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_LIMIT = 48 * 1024  # static shared memory a block may take without opt-in
 
 
 def _grid_side(HW: int) -> int:
@@ -86,6 +95,97 @@ def lazy_deform_sample_plain(feat, loc, attn_w, pos=None,
     return s[..., :Cin], s_pos, s[..., -1:]
 
 
+def _group_of(B: int, G: int, pos_block: bool, device) -> torch.Tensor:
+    """(B,) pos table index of each batch element."""
+    b = torch.arange(B, device=device)
+    return b // (B // G) if pos_block else b % G
+
+
+def lazy_deform_sample_backward_plain(feat, loc, attn_w, pos, pos_block,
+                                      g_feat, g_pos, g_one,
+                                      need_feat: bool = True,
+                                      need_pos: bool = True) -> Grads:
+    """Plain PyTorch VJP of :func:`lazy_deform_sample_plain` (the JAX
+    package's ``_lazy_bwd_rule``), written with gathers and ``index_add_``.
+
+    With the corners c of each point (b, q, n, p), their bilinear weights
+    ``w_c = wy_c * wx_c`` (zero out of the grid), ``a = attn_w`` and the
+    adjoint ``A_c = feat[c] . g_feat + pos[c] . g_pos + g_one``:
+
+        d_feat[b, c] += a * w_c * g_feat[b, q, n]
+        d_pos[g(b), c] += a * w_c * g_pos[b, q, n]   (summed over the group)
+        d_attn_w = sum_c w_c * A_c
+        d_loc = (a * W * sum_c wy_c * dwx_c * A_c, a * H * sum_c dwy_c * wx_c * A_c)
+
+    with ``dwx_c, dwy_c = -1 | +1`` the derivatives of the corner factors.
+    All in fp32; ``d_feat`` returns in ``feat.dtype``, ``d_pos`` in
+    ``pos.dtype`` and ``pos``'s shape, ``d_loc`` and ``d_attn_w`` in fp32.
+    ``d_feat`` is None unless ``need_feat``, ``d_pos`` None unless ``pos``
+    is given and ``need_pos``.
+    """
+    B, HW, Cin = feat.shape
+    Q, nh, P = attn_w.shape[1:]
+    H = W = _grid_side(HW)
+    dev = feat.device
+    aw = attn_w.float()
+    x = loc[..., 0].float() * W - 0.5
+    y = loc[..., 1].float() * H - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    lx, ly = x - x0, y - y0
+    x0i, y0i = x0.long(), y0.long()
+    # Corners in the order (y0, x0), (y0, x1), (y1, x0), (y1, x1): (B, Q, nh, P, 4).
+    cy = torch.stack([y0i, y0i, y0i + 1, y0i + 1], dim=-1)
+    cx = torch.stack([x0i, x0i + 1, x0i, x0i + 1], dim=-1)
+    ok = ((cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)).float()
+    wy = torch.stack([1 - ly, 1 - ly, ly, ly], dim=-1) * ok
+    wx = torch.stack([1 - lx, lx, 1 - lx, lx], dim=-1) * ok
+    sign = torch.tensor([-1.0, 1.0], device=dev)
+    dwy = sign.repeat_interleave(2) * ok  # (-1, -1, +1, +1)
+    dwx = sign.repeat(2) * ok  # (-1, +1, -1, +1)
+    wb = wy * wx
+    cell = (cy * W + cx).clamp(0, HW - 1)
+
+    def gathered_dot(table, rows, g):
+        # table (R, X) fp32; rows (B, Q, nh, P, 4); g (B, Q, nh, X).
+        return (table[rows] * g[:, :, :, None, None, :]).sum(-1)
+
+    gf = g_feat.float()
+    feat_rows = torch.arange(B, device=dev).view(B, 1, 1, 1, 1) * HW + cell
+    A = gathered_dot(feat.float().reshape(B * HW, Cin), feat_rows, gf)
+    pos_rows = gp = None
+    if pos is not None:
+        pos3 = _pos_groups(pos, B)
+        G, C = pos3.shape[0], pos3.shape[2]
+        grp = _group_of(B, G, pos_block, dev).view(B, 1, 1, 1, 1)
+        pos_rows = grp * HW + cell
+        gp = g_pos.float()
+        A = A + gathered_dot(pos3.float().reshape(G * HW, C), pos_rows, gp)
+    A = A + g_one.float()[..., None]  # (B, Q, nh, 1, 1): the ones channel
+
+    d_w = (wb * A).sum(-1)
+    d_x = aw * W * (wy * dwx * A).sum(-1)
+    d_y = aw * H * (dwy * wx * A).sum(-1)
+    d_loc = torch.stack([d_x, d_y], dim=-1)
+
+    sw = aw[..., None] * wb  # scatter weight of each corner
+
+    def scatter(n_rows, rows, g):
+        X = g.shape[-1]
+        src = (sw[..., None] * g[:, :, :, None, None, :]).reshape(-1, X)
+        out = torch.zeros(n_rows, X, device=dev, dtype=torch.float32)
+        return out.index_add_(0, rows.reshape(-1), src)
+
+    d_feat = d_pos = None
+    if need_feat:
+        d_feat = scatter(B * HW, feat_rows, gf).reshape(B, HW, Cin).to(feat.dtype)
+    if pos is not None and need_pos:
+        d_pos = scatter(G * HW, pos_rows, gp).reshape(pos.shape).to(pos.dtype)
+    return d_feat, d_loc, d_w, d_pos
+
+
+# -- CUDA kernels -------------------------------------------------------------
+
+
 def _check_cuda_inputs(feat, loc, attn_w, pos):
     if feat.dtype not in _DTYPE_CODES:
         raise TypeError(f"lazy_deform_sample kernel takes float32 or bfloat16 "
@@ -116,27 +216,61 @@ def _check_cuda_inputs(feat, loc, attn_w, pos):
         raise ValueError(f"pos {tuple(pos.shape)} is not on feat's grid of "
                          f"{feat.shape[1]} cells")
     nh, P = attn_w.shape[2:]
-    if nh * P * 4 * 8 > 48 * 1024:
+    if nh * P * 4 * 8 > _SMEM_LIMIT:
         raise ValueError(f"nh * P = {nh * P} corners exceed the kernel's "
                          f"shared memory")
 
 
-def lazy_deform_sample(feat, loc, attn_w, pos=None,
-                       pos_block: bool = False) -> Samples:
-    """Lazy deformable sampling; see :func:`lazy_deform_sample_plain` for the
-    contract.
+def _bwd_smem_bytes(nh: int, P: int, Cin: int, C: int) -> int:
+    """Shared memory of the backward kernel: the fp32 upstream-gradient rows
+    of every head, 4 corner records of 16 bytes per point, one weight per
+    point (see ``csrc/lazy_deform_sample_bwd.cu``)."""
+    return 4 * nh * (Cin + C) + nh * P * (4 * 16 + 4)
 
-    On CPU tensors this is the plain version. On CUDA tensors it launches the
-    hand-written kernel (``csrc/lazy_deform_sample.cu``) or raises; ``loc``
-    and ``attn_w`` are cast to fp32 first, as in the JAX package, so bf16
-    sampling positions are not rounded again. Each launch adds one to
-    ``lazy_deform_sample.launches``.
-    """
-    if feat.device.type == "cpu":
-        return lazy_deform_sample_plain(feat, loc, attn_w, pos, pos_block)
-    if feat.device.type != "cuda":
-        raise ValueError(f"lazy_deform_sample runs on cpu or cuda tensors, "
-                         f"got {feat.device}")
+
+def _check_backward_inputs(feat, loc, attn_w, pos, g_feat, g_pos, g_one):
+    _check_cuda_inputs(feat, loc, attn_w, pos)
+    B, _, Cin = feat.shape
+    Q, nh, P = attn_w.shape[1:]
+    C = pos.shape[-1] if pos is not None else 0
+    want = {"g_feat": (g_feat, (B, Q, nh, Cin)), "g_one": (g_one, (B, Q, nh, 1))}
+    if pos is not None:
+        want["g_pos"] = (g_pos, (B, Q, nh, C))
+    elif g_pos is not None:
+        raise ValueError("g_pos given without pos")
+    for name, (g, shape) in want.items():
+        if g is None or tuple(g.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{None if g is None else tuple(g.shape)}")
+        if g.dtype != feat.dtype:
+            raise TypeError(f"{name} must have feat's dtype {feat.dtype}, "
+                            f"got {g.dtype}")
+        if g.device != feat.device:
+            raise ValueError("lazy_deform_sample gradients must be on feat's device")
+        if name != "g_one" and (not g.is_contiguous() or g.data_ptr() % 16):
+            raise ValueError(f"the backward kernel needs a contiguous {name} "
+                             f"with a 16-byte aligned base")
+    if _bwd_smem_bytes(nh, P, Cin, C) > _SMEM_LIMIT:
+        raise ValueError(f"nh={nh}, P={P}, {Cin}+{C} channels exceed the "
+                         f"backward kernel's shared memory")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` contiguous with a 16-byte aligned base, copied if need be: an
+    upstream gradient may be a view into a larger buffer, and the backward
+    kernel reads its rows 16 bytes at a time."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _forward_kernel(feat, loc, attn_w, pos, pos_block: bool) -> Samples:
+    """Launch ``csrc/lazy_deform_sample.cu`` on CUDA tensors."""
     _check_cuda_inputs(feat, loc, attn_w, pos)
     B, HW, Cin = feat.shape
     Q, nh, P = attn_w.shape[1:]
@@ -151,15 +285,13 @@ def lazy_deform_sample(feat, loc, attn_w, pos=None,
              if pos3 is not None else None)
     s_one = torch.empty(B, Q, nh, 1, device=feat.device, dtype=feat.dtype)
 
-    lib = kernels.load("lazy_deform_sample")
-    fn = lib.egorear_lazy_deform_sample
+    fn = kernels.load("lazy_deform_sample").egorear_lazy_deform_sample
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
-        rc = fn(ptr(feat), ptr(pos3), ptr(loc), ptr(attn_w), ptr(s_feat),
-                ptr(s_pos), ptr(s_one), B, side, side, Cin, C, G,
+        rc = fn(_ptr(feat), _ptr(pos3), _ptr(loc), _ptr(attn_w), _ptr(s_feat),
+                _ptr(s_pos), _ptr(s_one), B, side, side, Cin, C, G,
                 int(bool(pos_block)), Q, nh, P, _DTYPE_CODES[feat.dtype],
                 stream)
     if rc != 0:
@@ -167,6 +299,126 @@ def lazy_deform_sample(feat, loc, attn_w, pos=None,
                            f"error {rc}")
     lazy_deform_sample.launches += 1
     return s_feat, s_pos, s_one
+
+
+def _backward_kernel(feat, loc, attn_w, pos, pos_block, g_feat, g_pos, g_one,
+                     need_feat: bool, need_pos: bool) -> Grads:
+    """Launch ``csrc/lazy_deform_sample_bwd.cu`` on CUDA tensors."""
+    loc = loc.to(torch.float32).contiguous()
+    attn_w = attn_w.to(torch.float32).contiguous()
+    g_feat, g_pos = _aligned16(g_feat), _aligned16(g_pos)
+    g_one = g_one.contiguous()
+    _check_backward_inputs(feat, loc, attn_w, pos, g_feat, g_pos, g_one)
+    B, HW, Cin = feat.shape
+    Q, nh, P = attn_w.shape[1:]
+    side = _grid_side(HW)
+    pos3 = _pos_groups(pos, B) if pos is not None else None
+    G, C = (pos3.shape[0], pos3.shape[2]) if pos3 is not None else (1, 0)
+    dev, f32 = feat.device, torch.float32
+
+    # fp32 scratch for the atomic scatters, zeroed; cast at the end.
+    d_feat = torch.zeros(B, HW, Cin, device=dev, dtype=f32) if need_feat else None
+    d_pos = (torch.zeros(G, HW, C, device=dev, dtype=f32)
+             if pos3 is not None and need_pos else None)
+    d_loc = torch.empty(B, Q, nh, P, 2, device=dev, dtype=f32)
+    d_w = torch.empty(B, Q, nh, P, device=dev, dtype=f32)
+
+    fn = kernels.load("lazy_deform_sample_bwd").egorear_lazy_deform_sample_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(_ptr(feat), _ptr(pos3), _ptr(loc), _ptr(attn_w), _ptr(g_feat),
+                _ptr(g_pos), _ptr(g_one), _ptr(d_feat), _ptr(d_pos),
+                _ptr(d_loc), _ptr(d_w), B, side, side, Cin, C, G,
+                int(bool(pos_block)), Q, nh, P, _DTYPE_CODES[feat.dtype],
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"lazy_deform_sample backward kernel launch failed: "
+                           f"CUDA error {rc}")
+    lazy_deform_sample_backward.launches += 1
+    if d_feat is not None:
+        d_feat = d_feat.to(feat.dtype)
+    if d_pos is not None:
+        d_pos = d_pos.reshape(pos.shape).to(pos.dtype)
+    return d_feat, d_loc, d_w, d_pos
+
+
+def _check_device(feat):
+    if feat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lazy_deform_sample runs on cpu or cuda tensors, "
+                         f"got {feat.device}")
+
+
+def lazy_deform_sample_backward(feat, loc, attn_w, pos, pos_block, g_feat,
+                                g_pos, g_one, need_feat: bool = True,
+                                need_pos: bool = True) -> Grads:
+    """VJP of :func:`lazy_deform_sample`; see
+    :func:`lazy_deform_sample_backward_plain` for the contract.
+
+    On CPU tensors this is the plain version. On CUDA tensors it launches the
+    hand-written kernel (``csrc/lazy_deform_sample_bwd.cu``) or raises. Each
+    launch adds one to ``lazy_deform_sample_backward.launches``.
+    """
+    _check_device(feat)
+    fn = (_backward_kernel if feat.device.type == "cuda"
+          else lazy_deform_sample_backward_plain)
+    return fn(feat, loc, attn_w, pos, pos_block, g_feat, g_pos, g_one,
+              need_feat, need_pos)
+
+
+lazy_deform_sample_backward.launches = 0
+
+
+class LazyDeformSample(torch.autograd.Function):
+    """Autograd node of lazy deformable sampling.
+
+    ``forward(feat, loc, attn_w, pos, pos_block, plain)``: with ``plain`` or
+    on CPU tensors the plain versions run forward and backward; on CUDA
+    tensors otherwise the two kernels. ``loc`` and ``attn_w`` arrive in
+    fp32 (the caller casts them inside the graph, so autograd casts their
+    gradients back). Gradients are computed only for the inputs that need
+    them: the MVFex refiners sample detached features, and their backward
+    then neither zeroes nor scatters a ``d_feat`` buffer.
+    """
+
+    @staticmethod
+    def forward(ctx, feat, loc, attn_w, pos, pos_block, plain):
+        use_kernel = feat.device.type == "cuda" and not plain
+        fn = _forward_kernel if use_kernel else lazy_deform_sample_plain
+        out = fn(feat, loc, attn_w, pos, pos_block)
+        ctx.save_for_backward(feat, loc, attn_w, pos)
+        ctx.pos_block, ctx.use_kernel = pos_block, use_kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, g_feat, g_pos, g_one):
+        feat, loc, attn_w, pos = ctx.saved_tensors
+        need_feat, need_loc, need_w, need_pos = ctx.needs_input_grad[:4]
+        fn = _backward_kernel if ctx.use_kernel else lazy_deform_sample_backward_plain
+        d_feat, d_loc, d_w, d_pos = fn(feat, loc, attn_w, pos, ctx.pos_block,
+                                       g_feat, g_pos, g_one, need_feat,
+                                       need_pos)
+        return (d_feat, d_loc if need_loc else None, d_w if need_w else None,
+                d_pos, None, None)
+
+
+def lazy_deform_sample(feat, loc, attn_w, pos=None, pos_block: bool = False,
+                       plain: bool = False) -> Samples:
+    """Lazy deformable sampling; see :func:`lazy_deform_sample_plain` for the
+    contract. Differentiable in ``feat``, ``loc``, ``attn_w`` and ``pos``.
+
+    On CPU tensors (or with ``plain``) this runs the plain versions forward
+    and backward. On CUDA tensors it launches the hand-written kernels
+    (``csrc/lazy_deform_sample.cu`` forward, ``csrc/lazy_deform_sample_bwd.cu``
+    backward) or raises. ``loc`` and ``attn_w`` are cast to fp32 first, as
+    in the JAX package, so bf16 sampling positions are not rounded again.
+    Each forward launch adds one to ``lazy_deform_sample.launches``.
+    """
+    _check_device(feat)
+    return LazyDeformSample.apply(feat, loc.to(torch.float32),
+                                  attn_w.to(torch.float32), pos, pos_block,
+                                  plain)
 
 
 lazy_deform_sample.launches = 0

@@ -1,5 +1,5 @@
-"""The port's CUDA kernel wrapper: its input checks (on the CPU) and the
-kernel against its plain version (on a card).
+"""The port's CUDA kernel wrappers, forward and backward: their input checks
+(on the CPU) and the kernels against their plain versions (on a card).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. On a machine with an NVIDIA GPU and nvcc, from
@@ -16,8 +16,12 @@ import pytest
 import torch
 
 from egorear_tpu_torch.ops.deform_attn import (
+    _aligned16,
+    _check_backward_inputs,
     _check_cuda_inputs,
     lazy_deform_sample,
+    lazy_deform_sample_backward,
+    lazy_deform_sample_backward_plain,
     lazy_deform_sample_plain,
 )
 
@@ -102,3 +106,118 @@ def test_kernel_matches_plain_on_card(pos_mode):
                 continue
             assert g.dtype == dtype and g.is_cuda
             torch.testing.assert_close(g.float().cpu(), ww, atol=atol, rtol=0)
+
+
+def _grads(feat, pos, seed=3):
+    """Upstream gradients of one call on ``_case``'s shapes (Q=15, nh=4)."""
+    rng = np.random.default_rng(seed)
+    B = feat.shape[0]
+    g = lambda c: torch.from_numpy(rng.normal(size=(B, 15, 4, c)).astype(np.float32))  # noqa: E731
+    return g(feat.shape[-1]), (g(pos.shape[-1]) if pos is not None else None), g(1)
+
+
+def test_backward_check_accepts_the_flagship_layout():
+    feat, loc, w, pos = _tensors(*_case("block")[:4])
+    g_feat, g_pos, g_one = _grads(feat, pos)
+    _check_backward_inputs(feat, loc, w, pos, g_feat, g_pos, g_one)
+    _check_backward_inputs(feat.bfloat16(), loc, w, pos.bfloat16(), g_feat.bfloat16(),
+                           g_pos.bfloat16(), g_one.bfloat16())
+    _check_backward_inputs(feat, loc, w, None, g_feat, None, g_one)
+
+
+@pytest.mark.parametrize("fault", [
+    "g_feat_shape", "g_one_missing", "g_pos_without_pos", "g_pos_missing",
+    "g_dtype", "g_misaligned", "too_many_channels", "feat_fault",
+])
+def test_backward_check_refuses_what_the_kernel_cannot_take(fault):
+    feat, loc, w, pos = _tensors(*_case("interleaved")[:4])
+    g_feat, g_pos, g_one = _grads(feat, pos)
+    if fault == "g_feat_shape":
+        g_feat = g_feat[..., :64]
+    elif fault == "g_one_missing":
+        g_one = None
+    elif fault == "g_pos_without_pos":
+        pos = None
+    elif fault == "g_pos_missing":
+        g_pos = None
+    elif fault == "g_dtype":
+        g_feat = g_feat.bfloat16()
+    elif fault == "g_misaligned":  # a view 4 bytes into a larger buffer
+        g_feat = _misaligned(g_feat)
+    elif fault == "too_many_channels":  # upstream rows exceed shared memory
+        feat = torch.zeros(4, 256, 4096)
+        g_feat = torch.zeros(4, 15, 4, 4096)
+    elif fault == "feat_fault":  # the forward's checks apply too
+        feat = feat.half()
+    with pytest.raises((TypeError, ValueError)):
+        _check_backward_inputs(feat, loc, w, pos, g_feat, g_pos, g_one)
+
+
+def _misaligned(x):
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def test_backward_wrapper_realigns_upstream_gradients():
+    """The kernel wrapper hands the kernel aligned copies of gradient views
+    that autograd may pass, and leaves aligned ones as they are."""
+    g = torch.arange(2 * 15 * 4 * 8, dtype=torch.float32).reshape(2, 15, 4, 8)
+    view = _misaligned(g)
+    assert view.data_ptr() % 16
+    fixed = _aligned16(view)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, g)
+    assert _aligned16(g) is g and _aligned16(None) is None
+    strided = _aligned16(torch.cat([g, g], -1)[..., 8:])
+    assert strided.is_contiguous() and torch.equal(strided, g)
+
+
+def test_backward_wrapper_uses_plain_on_cpu():
+    feat, loc, w, pos, block = _case("block")
+    args = _tensors(feat, loc, w, pos)
+    g = _grads(args[0], args[3])
+    before = lazy_deform_sample_backward.launches
+    got = lazy_deform_sample_backward(*args, block, *g, need_feat=False)
+    want = lazy_deform_sample_backward_plain(*args, block, *g, need_feat=False)
+    assert lazy_deform_sample_backward.launches == before  # no kernel on the CPU
+    assert got[0] is None and want[0] is None
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos_mode", ["none", "interleaved", "block"])
+def test_backward_kernel_matches_plain_on_card(pos_mode):
+    """The backward kernel vs its plain version, fp32 (1e-4 of each
+    gradient's largest value: sums in another order, atomics in a varying
+    order) and bf16 (the plain version in fp32 on the same bf16 inputs, 1e-2
+    of scale: one bf16 rounding of d_feat and d_pos), with and without
+    d_feat. ``chip_smoke.py`` does the same at the flagship shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    feat, loc, w, pos, block = _case(pos_mode)
+    feat_t, loc_t, w_t, pos_t = _tensors(feat, loc, w, pos)
+    grads = _grads(feat_t, pos_t)
+    for dtype in (torch.float32, torch.bfloat16):
+        c = lambda x: None if x is None else x.cuda().to(dtype)  # noqa: E731
+        f = lambda x: None if x is None else c(x).float().cpu()  # noqa: E731
+        for need_feat in (True, False):
+            want = lazy_deform_sample_backward_plain(
+                f(feat_t), loc_t, w_t, f(pos_t), block, *map(f, grads),
+                need_feat=need_feat)
+            before = lazy_deform_sample_backward.launches
+            got = lazy_deform_sample_backward(
+                c(feat_t), loc_t.cuda(), w_t.cuda(), c(pos_t), block,
+                *map(c, grads), need_feat=need_feat)
+            torch.cuda.synchronize()
+            assert lazy_deform_sample_backward.launches == before + 1
+            rtol = 1e-4 if dtype == torch.float32 else 1e-2
+            for g, ww in zip(got, want):
+                if ww is None:
+                    assert g is None
+                    continue
+                assert g.is_cuda
+                scale = float(ww.abs().max())
+                torch.testing.assert_close(g.float().cpu(), ww, atol=rtol * scale,
+                                           rtol=0)
