@@ -3,7 +3,8 @@
 
 Run from the repository root with one CUDA card: ``python3 chip_smoke.py``
 (``--profile FILE`` adds a device-time breakdown of the serving forward and
-of the training step and writes their tables to FILE). It imports nothing of JAX and
+of the training step, in both computation orders, and writes their tables
+to FILE). It imports nothing of JAX and
 nothing of the JAX package. Phases, one line each or more, every number
 beside the card's name and power limit:
 
@@ -27,6 +28,25 @@ beside the card's name and power limit:
      batch 32, the configured schedule) and check that every step launched
      the forward and the backward kernel 7 times each and that the loss
      falls over the timed steps.
+
+The reference computation order (``lazy_deform=False``: the memory on the
+grid, per-head sampling through ``deform_sample.cu`` and
+``deform_sample_bwd.cu``) adds:
+
+  2c. the per-head sampling kernel against its plain version at the MVFex
+     and pose3d shapes of batch 16, fp32 and bf16, and the head-shared form
+     at one shape; times of kernel, plain version and ``F.grid_sample``;
+  2d. the same for its backward (``d_value``, ``d_loc``, ``d_attn_w``);
+  3b. phase 3 in the reference order, and against the lazy order on the
+     same weights;
+  4b. phase 4 in the reference order: 7 launches of the per-head kernel per
+     forward and none of the lazy one;
+  5b. phase 5 in the reference order;
+  6b. phase 6 in the reference order: 7 + 7 launches of the per-head
+     kernels per step, none of the lazy ones.
+
+Every phase that drives the main path sets the launch counts of all four
+kernels to 0 just before it and reads them just after.
 
 It exits non-zero, without the last line, when there is no card or any phase
 fails. Its last two lines are the per-kernel JSON record and
@@ -72,6 +92,63 @@ TRAIN_GRAD_TOL, TRAIN_GRAD_FLOOR, TRAIN_BATCH = 1e-3, 1e-8, 2
 TRAIN_STAT_TOL = 1e-4  # BN running stats after the step, max-abs
 TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 32, 3, 10
 TRAIN_SIZE, TRAIN_DEVICE = 256, "cuda"  # a CPU rehearsal may shrink them
+
+# Per-head sampling (the reference order) at the flagship, batch 16: value
+# (B, 64, 64, nh, ch) = value_proj of the (4 x 16, 4096, C) memory; MVFex
+# C = 256, pose3d C = 128, 4 heads. The head-shared form at one shape: one
+# map of Cs = ch = 128 raw channels sampled by 4 heads of 16 queries.
+MSDA_SHAPES = {
+    "mvfex": dict(B=64, H=64, nh=4, ch=64, Q=15, P=16),
+    "pose3d": dict(B=64, H=64, nh=4, ch=32, Q=16, P=16),
+}
+SHARED_SHAPE = dict(B=64, H=64, nh=4, ch=128, Q=16, P=16)
+# Forward kernel vs plain version: max-abs error over the largest plain value.
+FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# 3b: the reference order vs the lazy order on the same weights (fp32).
+ORDERS_HM_TOL, ORDERS_P3D_TOL = 1e-4, 1e-2
+
+# The four kernels, by source name, and which computation order runs them.
+KERNELS = {
+    "lazy_deform_sample": ("lazy", "egorear_tpu/ops/deform_attn.py:497"),
+    "lazy_deform_sample_bwd": ("lazy", "egorear_tpu/ops/deform_attn.py:758"),
+    "deform_sample": ("reference", "egorear_tpu/ops/deform_attn.py:174"),
+    "deform_sample_bwd": ("reference", "egorear_tpu/ops/deform_attn.py:276"),
+}
+
+
+def _counters():
+    """Each kernel's wrapper, which counts its launches in ``.launches``."""
+    from egorear_tpu_torch.ops import deform_attn as da
+
+    return {"lazy_deform_sample": da.lazy_deform_sample,
+            "lazy_deform_sample_bwd": da.lazy_deform_sample_backward,
+            "deform_sample": da.deformable_sampling,
+            "deform_sample_bwd": da.deformable_sampling_backward}
+
+
+def reset_launches() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def expected_launches(lazy: bool, forwards: int, backwards: int) -> dict:
+    """Launch counts of a main-path run of ``forwards`` forwards and
+    ``backwards`` backwards in one computation order: the other order's
+    kernels never launch."""
+    fwd, bwd = (("lazy_deform_sample", "lazy_deform_sample_bwd") if lazy
+                else ("deform_sample", "deform_sample_bwd"))
+    want = dict.fromkeys(KERNELS, 0)
+    want[fwd] = forwards * LAUNCHES_PER_FORWARD
+    want[bwd] = backwards * LAUNCHES_PER_FORWARD
+    return want
+
+
+def order_tag(phase: int, lazy: bool) -> str:
+    return f"[{phase}{'' if lazy else 'b'}]"
 
 
 def card_line() -> str:
@@ -351,10 +428,191 @@ def phase_backward_kernels(card):
     return record
 
 
-def deform_attns(model):
-    from egorear_tpu_torch.models.layers import MSDeformAttnLazy
+def msda_inputs(shape, dtype, gen):
+    """Seeded inputs for one deformable_sampling call: value (B, H, H, nh,
+    ch), locations in [-0.3, 1.3] so corners fall outside on every side,
+    softmaxed weights, and an upstream gradient of the output."""
+    B, H, nh, ch, Q, P = (shape[k] for k in ("B", "H", "nh", "ch", "Q", "P"))
+    dev = "cuda"
+    value = torch.randn(B, H, H, nh, ch, generator=gen, device=dev).to(dtype)
+    loc = torch.rand(B, Q, nh, P, 2, generator=gen, device=dev) * 1.6 - 0.3
+    attn_w = torch.randn(B, Q, nh, P, generator=gen, device=dev).softmax(-1)
+    g = torch.randn(B, Q, nh * ch, generator=gen, device=dev).to(dtype)
+    return value, loc, attn_w, g
 
-    return [m for m in model.modules() if isinstance(m, MSDeformAttnLazy)]
+
+def msda_corner_slices(value, loc):
+    """For these sampling locations: the number of distinct (b, cell, head)
+    value slices that an in-range corner touches, and of in-range corners."""
+    B, H, W, nh, _ = value.shape
+    x = loc[..., 0].float() * W - 0.5
+    y = loc[..., 1].float() * H - 0.5
+    x0, y0 = torch.floor(x).long(), torch.floor(y).long()
+    b = torch.arange(B, device=loc.device).view(B, 1, 1, 1)
+    h = torch.arange(nh, device=loc.device).view(1, 1, nh, 1)
+    slices, n_corners = [], 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xc, yc = x0 + dx, y0 + dy
+            ok = (xc >= 0) & (xc < W) & (yc >= 0) & (yc < H)
+            n_corners += int(ok.sum())
+            slices.append((((b * H * W + yc * W + xc) * nh + h)[ok]))
+    return int(torch.unique(torch.cat(slices)).numel()), n_corners
+
+
+def msda_bound_ms(value, loc, attn_w, backward: bool = False):
+    """Least time for one deformable_sampling call (or its backward) on
+    these inputs.
+
+    Forward bytes: each distinct (b, cell, head) value slice that an
+    in-range corner touches read once; loc and attn_w (fp32, as the kernel
+    reads them) read once; the (B, Q, nh*ch) output written once. The
+    backward adds the upstream gradient g read once (output-sized), d_value
+    written in full (value-sized) and d_loc and d_attn_w (fp32) written
+    once. Operations: one multiply-add per channel per in-range corner, and
+    in the backward one more for the d_value scatter, fp32 outside the
+    tensor cores. The larger of the two times at the published H100 peaks.
+    """
+    ch, es = value.shape[-1], value.element_size()
+    n_slices, n_corners = msda_corner_slices(value, loc)
+    out_bytes = (attn_w.numel() // attn_w.shape[-1]) * ch * es
+    nbytes = n_slices * ch * es + (loc.numel() + attn_w.numel()) * 4 + out_bytes
+    flops = 2 * n_corners * ch
+    if backward:
+        nbytes += value.numel() * es + (loc.numel() + attn_w.numel()) * 4
+        flops *= 2
+    return _bound(nbytes, flops)
+
+
+def _grid_sample_operands(value, loc, requires_grad=False):
+    """value as (B*nh, ch, H, W) and the grid (B*nh, Q, P, 2) of one
+    per-head F.grid_sample (no weighting, no sum over points)."""
+    B, H, W, nh, ch = value.shape
+    Q, P = loc.shape[1], loc.shape[3]
+    v = value.permute(0, 3, 4, 1, 2).reshape(B * nh, ch, H, W).contiguous()
+    grid = (2 * loc - 1).transpose(1, 2).reshape(B * nh, Q, P, 2).to(value.dtype)
+    return v.requires_grad_(requires_grad), grid.contiguous().requires_grad_(requires_grad)
+
+
+def phase_msda_kernels(card):
+    """2c: the per-head sampling kernel vs its plain version at both
+    flagship shapes, and the head-shared form at one shape."""
+    import torch.nn.functional as F
+
+    from egorear_tpu_torch.ops.deform_attn import (
+        deformable_sampling, deformable_sampling_plain,
+        deformable_sampling_shared)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    record = None
+    cases = [(name, shape, dtype) for name, shape in MSDA_SHAPES.items()
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases.append(("shared", SHARED_SHAPE, torch.bfloat16))
+    for name, shape, dtype in cases:
+        value, loc, attn_w, _ = msda_inputs(shape, dtype, gen)
+        if name == "shared":
+            value = value[:, :, :, 0].contiguous()  # (B, H, W, Cs), one map
+            fn = lambda: deformable_sampling_shared(value, loc, attn_w)  # noqa: E731
+            plain = lambda: deformable_sampling_shared(  # noqa: E731
+                value, loc, attn_w, plain=True)
+            want = deformable_sampling_shared(value.float(), loc, attn_w, plain=True)
+            # The kernel's call: the heads folded into the queries of one map.
+            B, Q, nh, P = attn_w.shape
+            kernel_args = (value[..., None, :],
+                           loc.transpose(1, 2).reshape(B, nh * Q, 1, P, 2),
+                           attn_w.transpose(1, 2).reshape(B, nh * Q, 1, P))
+        else:
+            fn = lambda: deformable_sampling(value, loc, attn_w)  # noqa: E731
+            plain = lambda: deformable_sampling_plain(value, loc, attn_w)  # noqa: E731
+            want = deformable_sampling_plain(value.float(), loc, attn_w)
+            kernel_args = (value, loc, attn_w)
+        got = fn()
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got.float() - want).abs().max())
+        if not err <= FWD_TOL[dtype] * scale:
+            raise AssertionError(f"deform_sample {name} {dtype}: max-abs {err:.3e} "
+                                 f"> {FWD_TOL[dtype]:g} x {scale:.3e}")
+        ms, plain_ms = time_ms(fn), time_ms(plain)
+        v, grid = _grid_sample_operands(*kernel_args[:2])
+        library_ms = time_ms(lambda: F.grid_sample(
+            v, grid, mode="bilinear", padding_mode="zeros", align_corners=False))
+        bound_ms, bound_by = msda_bound_ms(*kernel_args)
+        print(f"[2c] deform_sample {name} {str(dtype)[6:]} "
+              f"{'x'.join(str(n) for n in value.shape)} Q={loc.shape[1]} "
+              f"P={loc.shape[3]}: max-abs/scale {err / scale:.3e} (tol "
+              f"{FWD_TOL[dtype]:g}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}) | {card}", flush=True)
+        if name == "mvfex" and dtype == torch.bfloat16:
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms)
+    return record
+
+
+def phase_msda_backward_kernels(card):
+    """2d: the per-head sampling backward kernel vs its plain version at
+    both flagship shapes, with d_value (every call of the main path needs
+    it)."""
+    import torch.nn.functional as F
+
+    from egorear_tpu_torch.ops.deform_attn import (
+        deformable_sampling_backward, deformable_sampling_backward_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    record = None
+    names = ("d_value", "d_loc", "d_attn_w")
+    for name, shape in MSDA_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            value, loc, attn_w, g = msda_inputs(shape, dtype, gen)
+            got = deformable_sampling_backward(value, loc, attn_w, g)
+            torch.cuda.synchronize()
+            # The oracle runs in fp32 on the same (possibly bf16) inputs.
+            want = deformable_sampling_backward_plain(value.float(), loc, attn_w,
+                                                      g.float())
+            errs, abs_errs = {}, []
+            for n, a, b in zip(names, got, want):
+                scale = float(b.float().abs().max())
+                err = float((a.float() - b.float()).abs().max())
+                errs[n] = err / max(scale, 1e-30)
+                abs_errs.append(err)
+                if not err <= BWD_TOL[dtype] * scale:
+                    raise AssertionError(
+                        f"deform_sample backward {name} {dtype} {n}: max-abs "
+                        f"{err:.3e} > {BWD_TOL[dtype]:g} x {scale:.3e}")
+            ms = time_ms(lambda: deformable_sampling_backward(value, loc, attn_w, g))
+            plain_ms = time_ms(lambda: deformable_sampling_backward_plain(
+                value, loc, attn_w, g))
+            # Library yardstick: the autograd backward of one per-head
+            # F.grid_sample, grads on input and grid; the backward only.
+            v, grid = _grid_sample_operands(value, loc, requires_grad=True)
+            out = F.grid_sample(v, grid, mode="bilinear", padding_mode="zeros",
+                                align_corners=False)
+            g_out = torch.randn_like(out)
+            library_ms = time_ms(lambda: torch.autograd.grad(
+                out, (v, grid), g_out, retain_graph=True))
+            del out, v, grid, g_out
+            bound_ms, bound_by = msda_bound_ms(value, loc, attn_w, backward=True)
+            err_txt = " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+            print(f"[2d] deform_sample_bwd {name} {str(dtype)[6:]} "
+                  f"{'x'.join(str(n) for n in value.shape)} Q={shape['Q']}: "
+                  f"max-abs/scale {err_txt} (tol {BWD_TOL[dtype]:g}) "
+                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}) | {card}", flush=True)
+            if name == "mvfex" and dtype == torch.bfloat16:
+                record = dict(max_abs_err=max(abs_errs), ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=library_ms)
+    return record
+
+
+def deform_attns(model):
+    """Every deformable attention of the model, in either computation order
+    (``MSDeformAttnLazy`` is an ``MSDeformAttn``)."""
+    from egorear_tpu_torch.models.layers import MSDeformAttn
+
+    return [m for m in model.modules() if isinstance(m, MSDeformAttn)]
 
 
 @torch.no_grad()
@@ -386,30 +644,33 @@ def perturb_(model, img, gen):
         head.Conv_4.bias.add_(shift)
 
 
-def phase_end_to_end(card):
-    """The flagship forward through the kernel vs through the plain version."""
+def phase_end_to_end(card, lazy: bool = True):
+    """The flagship forward through the kernels vs through the plain
+    versions; in the reference order also vs the lazy order on the same
+    weights."""
     from egorear_tpu_torch import entry
-    from egorear_tpu_torch.ops.deform_attn import lazy_deform_sample
     from egorear_tpu_torch.ops.heatmap import argmax_2d
 
-    model, rig = entry.build((256, 256), dtype=torch.float32, seed=0)
+    tag = order_tag(3, lazy)
+    model, rig = entry.build((256, 256), dtype=torch.float32, seed=0,
+                             lazy_deform=lazy)
     gen = torch.Generator(device="cuda").manual_seed(1)
     img = torch.randn(E2E_BATCH, 4, 3, 256, 256, generator=gen, device="cuda")
     perturb_(model, img, gen)
     attns = deform_attns(model)
     with torch.inference_mode():
-        before = lazy_deform_sample.launches
+        reset_launches()
         got_p3d, got_hm = model(img, rig)
         torch.cuda.synchronize()
-        launched = lazy_deform_sample.launches - before
+        launched = read_launches()
         for m in attns:
             m.impl = "plain"
         want_p3d, want_hm = model(img, rig)
         for m in attns:
             m.impl = "kernel"
-    if launched != LAUNCHES_PER_FORWARD:
-        raise AssertionError(f"kernel run launched {launched} kernels, "
-                             f"expected {LAUNCHES_PER_FORWARD}")
+    if launched != expected_launches(lazy, 1, 0):
+        raise AssertionError(f"kernel run launched {launched}, expected "
+                             f"{expected_launches(lazy, 1, 0)}")
     valid_2d = float(argmax_2d(want_hm[0], 0.5, normalize=True)[2].float().mean())
     valid_3d = float(rig.project(want_p3d[0])[1].float().mean())
     if not (valid_2d > 0 and valid_3d > 0):
@@ -417,7 +678,8 @@ def phase_end_to_end(card):
                              f"the check would not see the kernel")
     hm_errs = [float((g - w).abs().max()) for g, w in zip(got_hm, want_hm)]
     p3d_errs = [float((g - w).abs().max()) for g, w in zip(got_p3d, want_p3d)]
-    print(f"[3] flagship 256px B={E2E_BATCH} fp32 kernel vs plain: heatmap "
+    print(f"{tag} flagship 256px B={E2E_BATCH} fp32 "
+          f"{'lazy' if lazy else 'reference'} order kernel vs plain: heatmap "
           f"stages max-abs {hm_errs} (tol {E2E_HM_TOL:g}), preds_3d stages "
           f"max-abs cm {p3d_errs} (tol {E2E_P3D_TOL:g}); valid anchors 2D "
           f"{valid_2d:.3f} 3D {valid_3d:.3f} | {card}", flush=True)
@@ -425,22 +687,37 @@ def phase_end_to_end(card):
         raise AssertionError("unexpected number of output stages")
     if not (max(hm_errs) <= E2E_HM_TOL and max(p3d_errs) <= E2E_P3D_TOL):
         raise AssertionError("end-to-end kernel run disagrees with the plain run")
+    if lazy:
+        return
+    # Two independent kernels computing one function by different algebra.
+    other, _ = entry.build((256, 256), dtype=torch.float32, seed=0)
+    other.load_state_dict(model.state_dict(), strict=True)
+    with torch.inference_mode():
+        lazy_p3d, lazy_hm = other(img, rig)
+    hm_errs = [float((g - w).abs().max()) for g, w in zip(got_hm, lazy_hm)]
+    p3d_errs = [float((g - w).abs().max()) for g, w in zip(got_p3d, lazy_p3d)]
+    print(f"{tag} flagship 256px B={E2E_BATCH} fp32 reference order vs lazy "
+          f"order, both through their kernels, same weights: heatmap stages "
+          f"max-abs {hm_errs} (tol {ORDERS_HM_TOL:g}), preds_3d stages max-abs "
+          f"cm {p3d_errs} (tol {ORDERS_P3D_TOL:g}) | {card}", flush=True)
+    if not (max(hm_errs) <= ORDERS_HM_TOL and max(p3d_errs) <= ORDERS_P3D_TOL):
+        raise AssertionError("the reference order disagrees with the lazy order")
 
 
-def phase_serve(card, profile: str | None):
+def phase_serve(card, profile: str | None, lazy: bool = True):
     """Serve the flagship as users would; returns the kernel launch counts
     of the main path."""
     from egorear_tpu_torch import entry
-    from egorear_tpu_torch.ops.deform_attn import lazy_deform_sample
 
+    tag = order_tag(4, lazy)
     model, rig = entry.build((256, 256), dtype=torch.bfloat16, bn_folded=True,
-                             seed=0)
+                             seed=0, lazy_deform=lazy)
     gen = torch.Generator(device="cuda").manual_seed(2)
     img = torch.randn(SERVE_BATCH, 4, 3, 256, 256, generator=gen,
                       device="cuda").to(torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
-        lazy_deform_sample.launches = 0
+        reset_launches()
         for _ in range(SERVE_WARMUP):
             model(img, rig)
         torch.cuda.synchronize()
@@ -449,12 +726,12 @@ def phase_serve(card, profile: str | None):
             preds_3d, heatmaps = model(img, rig)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / SERVE_TIMED
-        launches = lazy_deform_sample.launches
+        launches = read_launches()
     forwards = SERVE_WARMUP + SERVE_TIMED
-    want = forwards * LAUNCHES_PER_FORWARD
+    want = expected_launches(lazy, forwards, 0)
     if launches != want:
-        raise AssertionError(f"{forwards} forwards launched the kernel "
-                             f"{launches} times, expected {want}")
+        raise AssertionError(f"{forwards} forwards launched {launches}, "
+                             f"expected {want}")
     B, J = SERVE_BATCH, 16
     if [tuple(p.shape) for p in preds_3d] != [(B, J, 3)] * 4:
         raise AssertionError(f"preds_3d shapes {[p.shape for p in preds_3d]}")
@@ -463,35 +740,49 @@ def phase_serve(card, profile: str | None):
     if not all(bool(torch.isfinite(x).all()) for x in (*preds_3d, *heatmaps)):
         raise AssertionError("non-finite serving output")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[4] serve flagship 256px bf16 BN-folded B={B}: "
+    name = "lazy_deform_sample" if lazy else "deform_sample"
+    print(f"{tag} serve flagship 256px bf16 BN-folded "
+          f"{'lazy' if lazy else 'reference'} order B={B}: "
           f"{dt * 1e3:.3f} ms/forward (host clock, {SERVE_TIMED} forwards "
           f"after {SERVE_WARMUP} warm-up), {B / dt:.1f} samples/s "
-          f"({4 * B / dt:.1f} images/s), peak {peak_gib:.2f} GiB; kernel "
-          f"launches {launches} = {forwards} x {LAUNCHES_PER_FORWARD} "
-          f"(4 refiners looped + 3 lifting layers) | {card}", flush=True)
+          f"({4 * B / dt:.1f} images/s), peak {peak_gib:.2f} GiB; {name} "
+          f"launches {launches[name]} = {forwards} x {LAUNCHES_PER_FORWARD} "
+          f"(4 refiners looped + 3 lifting layers), other kernels 0 | {card}",
+          flush=True)
     if profile:
-        profile_serving(model, rig, img, card, profile)
-    return {"lazy_deform_sample": launches}
+        profile_serving(model, rig, img, card, profile, lazy)
+    return launches
 
 
-def profile_serving(model, rig, img, card, path: str, n: int = 3):
+def kernel_time(events, name: str) -> float:
+    """Device time (us) of kernel ``name`` (a csrc source name) in the
+    profiler's events; ``deform_sample`` does not count the lazy kernel."""
+    key = f"{name}_kernel"
+    return sum(e.self_device_time_total for e in events
+               if key in e.key and (name.startswith("lazy_") or f"lazy_{key}" not in e.key))
+
+
+def profile_serving(model, rig, img, card, path: str, lazy: bool = True,
+                    n: int = 3):
     """Device time by kernel over ``n`` serving forwards (torch.profiler);
-    the table goes to ``path``."""
+    the table goes to ``path`` (the lazy order's first, then appended)."""
     from torch.profiler import ProfilerActivity, profile
 
+    tag = order_tag(4, lazy)
     with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             model(img, rig)
         torch.cuda.synchronize()
-    events, total = _device_table(prof, card, path, "w")
+    events, total = _device_table(prof, f"{card} serving {tag}", path,
+                                  "w" if lazy else "a")
     if total <= 0:
-        print(f"[4] profile: the profiler saw no device time | {card}")
+        print(f"{tag} profile: the profiler saw no device time | {card}")
         return
-    lazy = sum(e.self_device_time_total for e in events
-               if "lazy_deform_sample" in e.key)
-    print(f"[4] profile over {n} forwards: device busy {total / n / 1e3:.3f} "
-          f"ms/forward, lazy_deform_sample {lazy / n / 1e3:.4f} ms/forward "
-          f"({100 * lazy / total:.2f}% of device time) | {card}", flush=True)
+    name = "lazy_deform_sample" if lazy else "deform_sample"
+    t = kernel_time(events, name)
+    print(f"{tag} profile over {n} forwards: device busy {total / n / 1e3:.3f} "
+          f"ms/forward, {name} {t / n / 1e3:.4f} ms/forward "
+          f"({100 * t / total:.2f}% of device time) | {card}", flush=True)
 
 
 def train_batch(B, size, gen, dtype=torch.float32):
@@ -534,19 +825,17 @@ def _adam_param_check(name, got, want, grad, grad_tol, lr, eps=1e-8):
     return tight, loose
 
 
-def phase_train_check(card):
+def phase_train_check(card, lazy: bool = True):
     """One fp32 train step through the kernels vs one through the plain
     versions, from the same state on the same batch."""
     import copy
 
     from egorear_tpu_torch import entry
-    from egorear_tpu_torch.ops.deform_attn import (
-        lazy_deform_sample, lazy_deform_sample_backward)
     from egorear_tpu_torch.ops.heatmap import argmax_2d
 
     task, trainer = entry.build_train((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE, "32",
                                       seed=0, steps_per_epoch=1,
-                                      warmup_iters=1)
+                                      warmup_iters=1, lazy_deform=lazy)
     model = task.model
     gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(4)
     batch = train_batch(TRAIN_BATCH, TRAIN_SIZE, gen)
@@ -573,11 +862,10 @@ def phase_train_check(card):
             m.impl = impl
         model.load_state_dict(start)
         trainer.init_state(steps_per_epoch=1)
-        fwd0, bwd0 = lazy_deform_sample.launches, lazy_deform_sample_backward.launches
+        reset_launches()
         metrics = trainer.train_step(batch)
         torch.cuda.synchronize()
-        launched = (lazy_deform_sample.launches - fwd0,
-                    lazy_deform_sample_backward.launches - bwd0)
+        launched = read_launches()
         runs[impl] = dict(
             launched=launched, loss=float(metrics["loss_total"]),
             lr=float(metrics["lr"]),
@@ -587,12 +875,13 @@ def phase_train_check(card):
                    if "running" in k})
     for m in deform_attns(model):
         m.impl = "kernel"
-    if runs["kernel"]["launched"] != (LAUNCHES_PER_FORWARD,) * 2:
+    if runs["kernel"]["launched"] != expected_launches(lazy, 1, 1):
         raise AssertionError(f"kernel step launched {runs['kernel']['launched']}"
-                             f" (forward, backward) kernels, expected "
-                             f"{LAUNCHES_PER_FORWARD} each")
-    if runs["plain"]["launched"] != (0, 0):
+                             f", expected {expected_launches(lazy, 1, 1)}")
+    if any(runs["plain"]["launched"].values()):
         raise AssertionError("the plain step launched a kernel")
+    fwd_name, bwd_name = (("lazy_deform_sample", "lazy_deform_sample_bwd") if lazy
+                          else ("deform_sample", "deform_sample_bwd"))
     k, pl = runs["kernel"], runs["plain"]
     # A leaf whose largest gradient is below TRAIN_GRAD_FLOOR of the model's
     # largest is zero in exact arithmetic (the key-projection biases, to
@@ -625,7 +914,8 @@ def phase_train_check(card):
                    for n, v in pl["stats"].items())
     if not stat_err <= TRAIN_STAT_TOL:
         raise AssertionError(f"BN running stats differ by {stat_err:.3e}")
-    print(f"[5] flagship {TRAIN_SIZE}px B={TRAIN_BATCH} fp32 train step kernel vs plain: "
+    print(f"{order_tag(5, lazy)} flagship {TRAIN_SIZE}px B={TRAIN_BATCH} fp32 "
+          f"{'lazy' if lazy else 'reference'} order train step kernel vs plain: "
           f"loss {k['loss']:.6f} vs {pl['loss']:.6f}; worst leaf gradient "
           f"max-abs/scale {worst_grad:.3e} ({worst_name}, tol "
           f"{TRAIN_GRAD_TOL:g}; {n_floor} leaves below the rounding floor "
@@ -633,28 +923,26 @@ def phase_train_check(card):
           f"the gradient is determined, {worst_loose:.3e} elsewhere (Adam "
           f"bound 2 lr = {2 * pl['lr']:.1e}); BN running stats "
           f"{stat_err:.3e} (tol {TRAIN_STAT_TOL:g}); launches (fwd, bwd) "
-          f"{k['launched']}; valid anchors 2D {valid_2d:.3f} 3D "
+          f"({k['launched'][fwd_name]}, {k['launched'][bwd_name]}); valid "
+          f"anchors 2D {valid_2d:.3f} 3D "
           f"{valid_3d:.3f} | {card}", flush=True)
 
 
-def phase_train(card, profile: str | None):
+def phase_train(card, profile: str | None, lazy: bool = True):
     """Train the flagship as users would; returns the kernel launch counts
     of the main path."""
     from egorear_tpu_torch import entry
-    from egorear_tpu_torch.ops.deform_attn import (
-        lazy_deform_sample, lazy_deform_sample_backward)
 
     # The flagship schedule as configured, warmup 500 included: without the
     # warmup, lr 1e-3 from step 1 overshoots on one fixed random batch (the
     # loss fell for 2 steps, then rose to 1.9x its start on the H100).
     task, trainer = entry.build_train((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE,
                                       "bf16-mixed", seed=0,
-                                      steps_per_epoch=1000)
+                                      steps_per_epoch=1000, lazy_deform=lazy)
     gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(5)
     batch = train_batch(TRAIN_B, TRAIN_SIZE, gen)
     torch.cuda.reset_peak_memory_stats()
-    lazy_deform_sample.launches = 0
-    lazy_deform_sample_backward.launches = 0
+    reset_launches()
     losses = []
     for _ in range(TRAIN_WARMUP):
         losses.append(trainer.train_step(batch)["loss_total"])
@@ -664,29 +952,30 @@ def phase_train(card, profile: str | None):
         losses.append(trainer.train_step(batch)["loss_total"])
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / TRAIN_TIMED
-    launches = {"lazy_deform_sample": lazy_deform_sample.launches,
-                "lazy_deform_sample_bwd": lazy_deform_sample_backward.launches}
+    launches = read_launches()
     steps = TRAIN_WARMUP + TRAIN_TIMED
-    want = steps * LAUNCHES_PER_FORWARD
-    if list(launches.values()) != [want, want]:
+    want = expected_launches(lazy, steps, steps)
+    if launches != want:
         raise AssertionError(f"{steps} train steps launched {launches}, "
-                             f"expected {want} of each")
+                             f"expected {want}")
+    fwd_name, bwd_name = (("lazy_deform_sample", "lazy_deform_sample_bwd") if lazy
+                          else ("deform_sample", "deform_sample_bwd"))
     losses = [float(x) for x in losses]
     first, last = losses[TRAIN_WARMUP], losses[-1]  # over the timed steps
     if not all(math.isfinite(x) for x in losses) or not last < first:
         raise AssertionError(f"loss not finite and falling: {losses}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[6] train flagship {TRAIN_SIZE}px bf16-mixed B={TRAIN_B}: "
+    print(f"{order_tag(6, lazy)} train flagship {TRAIN_SIZE}px bf16-mixed "
+          f"{'lazy' if lazy else 'reference'} order B={TRAIN_B}: "
           f"{dt * 1e3:.3f} ms/step (host clock, {TRAIN_TIMED} steps after "
           f"{TRAIN_WARMUP} warm-up, one fixed batch, lr {trainer.lr:g} warmed "
           f"over {trainer.warmup_iters} steps), {TRAIN_B / dt:.2f} samples/s, "
           f"peak {peak_gib:.2f} GiB; "
-          f"loss {first:.4f} -> {last:.4f}; launches forward "
-          f"{launches['lazy_deform_sample']} backward "
-          f"{launches['lazy_deform_sample_bwd']} = {steps} x "
-          f"{LAUNCHES_PER_FORWARD} | {card}", flush=True)
+          f"loss {first:.4f} -> {last:.4f}; launches {fwd_name} "
+          f"{launches[fwd_name]}, {bwd_name} {launches[bwd_name]} = {steps} x "
+          f"{LAUNCHES_PER_FORWARD}, other kernels 0 | {card}", flush=True)
     if profile:
-        profile_train(trainer, batch, card, profile)
+        profile_train(trainer, batch, card, profile, lazy)
     return launches
 
 
@@ -702,12 +991,14 @@ def _device_table(prof, card, path, mode):
     return events, total
 
 
-def profile_train(trainer, batch, card, path: str, n: int = 3):
+def profile_train(trainer, batch, card, path: str, lazy: bool = True,
+                  n: int = 3):
     """Device time by kernel over ``n`` train steps (torch.profiler), and the
     device's idle share against the host clock; the table is appended to
     ``path``."""
     from torch.profiler import ProfilerActivity, profile
 
+    tag = order_tag(6, lazy)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -715,20 +1006,18 @@ def profile_train(trainer, batch, card, path: str, n: int = 3):
             trainer.train_step(batch)
         torch.cuda.synchronize()
     host = (time.perf_counter() - t0) / n * 1e3
-    events, total = _device_table(prof, card, path, "a")
+    events, total = _device_table(prof, f"{card} training {tag}", path, "a")
     if total <= 0:
-        print(f"[6] profile: the profiler saw no device time | {card}")
+        print(f"{tag} profile: the profiler saw no device time | {card}")
         return
     busy = total / n / 1e3
-
-    def share(key):
-        return sum(e.self_device_time_total for e in events if key in e.key) / n / 1e3
-
-    fwd, bwd = share("lazy_deform_sample_kernel"), share("lazy_deform_sample_bwd_kernel")
-    print(f"[6] profile over {n} train steps: host {host:.3f} ms/step under "
+    names = (("lazy_deform_sample", "lazy_deform_sample_bwd") if lazy
+             else ("deform_sample", "deform_sample_bwd"))
+    fwd, bwd = (kernel_time(events, name) / n / 1e3 for name in names)
+    print(f"{tag} profile over {n} train steps: host {host:.3f} ms/step under "
           f"the profiler, device busy {busy:.3f} ms/step (idle "
-          f"{100 * (1 - busy / host):.1f} %); lazy_deform_sample_kernel "
-          f"{fwd:.4f} ms/step, lazy_deform_sample_bwd_kernel {bwd:.4f} "
+          f"{100 * (1 - busy / host):.1f} %); {names[0]}_kernel "
+          f"{fwd:.4f} ms/step, {names[1]}_kernel {bwd:.4f} "
           f"ms/step ({100 * (fwd + bwd) / busy:.2f} % of device time) | {card}",
           flush=True)
 
@@ -737,7 +1026,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
                     help="write a device-time breakdown of the serving "
-                         "forward and of the training step to FILE")
+                         "forward and of the training step, in both "
+                         "computation orders, to FILE")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -749,37 +1039,52 @@ def main() -> int:
     print(f"[1] device: {torch.cuda.get_device_name(0)} x"
           f"{torch.cuda.device_count()}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda} | {card}", flush=True)
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = time.perf_counter() - t
+        return out
+
     t0 = time.perf_counter()
-    logs = kernels.build()
-    build_s = time.perf_counter() - t0
+    logs = timed("1", kernels.build)
     for name, log in logs.items():
         ptxas = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
-        print(f"[1] built {name} in {build_s:.1f} s: {' | '.join(ptxas)}",
+        print(f"[1] built {name} in {seconds['1']:.1f} s: {' | '.join(ptxas)}",
               flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    records = {"lazy_deform_sample": phase_kernels(card),
-               "lazy_deform_sample_bwd": phase_backward_kernels(card)}
-    phase_end_to_end(card)
-    serve_launches = phase_serve(card, args.profile)
-    phase_train_check(card)
-    launches = phase_train(card, args.profile)
-    print(f"[7] main-path launches: serving forward "
-          f"{serve_launches['lazy_deform_sample']}; training forward "
-          f"{launches['lazy_deform_sample']}, backward "
-          f"{launches['lazy_deform_sample_bwd']} | {card}", flush=True)
+    records = {"lazy_deform_sample": timed("2", phase_kernels, card),
+               "lazy_deform_sample_bwd": timed("2b", phase_backward_kernels, card),
+               "deform_sample": timed("2c", phase_msda_kernels, card),
+               "deform_sample_bwd": timed("2d", phase_msda_backward_kernels, card)}
+    serve, train = {}, {}
+    for lazy in (True, False):
+        b = "" if lazy else "b"
+        timed(f"3{b}", phase_end_to_end, card, lazy)
+        serve[lazy] = timed(f"4{b}", phase_serve, card, args.profile, lazy)
+        timed(f"5{b}", phase_train_check, card, lazy)
+        train[lazy] = timed(f"6{b}", phase_train, card, args.profile, lazy)
+    print(f"[7] main-path launches: serving forward lazy_deform_sample "
+          f"{serve[True]['lazy_deform_sample']}, deform_sample "
+          f"{serve[False]['deform_sample']}; training lazy_deform_sample "
+          f"{train[True]['lazy_deform_sample']}, lazy_deform_sample_bwd "
+          f"{train[True]['lazy_deform_sample_bwd']}, deform_sample "
+          f"{train[False]['deform_sample']}, deform_sample_bwd "
+          f"{train[False]['deform_sample_bwd']} | {card}", flush=True)
+    print("[7] seconds by phase: "
+          + " ".join(f"{k}={v:.1f}" for k, v in seconds.items())
+          + f"; total {time.perf_counter() - t0:.1f} | {card}", flush=True)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda",
-             source=f"egorear_tpu_torch/csrc/{name}.cu",
-             replaces=("egorear_tpu/ops/deform_attn.py:497"
-                       if name == "lazy_deform_sample" else
-                       "egorear_tpu/ops/deform_attn.py:758"),
-             launches=launches[name], **records[name])
-        for name in ("lazy_deform_sample", "lazy_deform_sample_bwd")]}))
+             source=f"egorear_tpu_torch/csrc/{name}.cu", replaces=replaces,
+             launches=train[order == "lazy"][name], **records[name])
+        for name, (order, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,6 +6,7 @@ conv-downsample 3D proposal, 3 lifting layers) and :func:`build`.
 
     model, rig = build()                          # on cuda, fp32
     model, rig = build(bn_folded=True, dtype=torch.bfloat16)   # serving
+    model, rig = build(lazy_deform=False)         # the reference order
     with torch.inference_mode():
         preds_3d, heatmaps = model(img, rig)      # img (B, 4, 3, 256, 256)
 
@@ -66,37 +67,48 @@ FLAGSHIP_CFG = {
 }
 
 
-def flagship_cfg_dict(image_size=(256, 256), bn_folded: bool = False) -> dict:
-    """The flagship config as a dict at ``image_size`` (optionally BN-folded)."""
+def flagship_cfg_dict(image_size=(256, 256), bn_folded: bool = False,
+                      lazy_deform: bool = True) -> dict:
+    """The flagship config as a dict at ``image_size`` (optionally BN-folded;
+    with ``lazy_deform=False`` the reference computation order, i.e. the
+    yaml keys ``mvf_cfg.lazy_deform`` and ``pose3d_cfg.lazy_deform`` off)."""
     d = copy.deepcopy(dict(FLAGSHIP_CFG, image_size=list(image_size)))
     if bn_folded:
         d["heatmap_mvf_cfg"]["encoder_cfg"]["resnet_cfg"]["bn_folded"] = True
+    if not lazy_deform:
+        d["heatmap_mvf_cfg"]["mvf_cfg"]["lazy_deform"] = False
+        d["pose3d_cfg"]["lazy_deform"] = False
     return d
 
 
-def flagship_cfg(image_size=(256, 256), bn_folded: bool = False) -> EgoRearNetCfg:
-    """The flagship config at ``image_size`` (optionally BN-folded)."""
-    return EgoRearNetCfg.from_dict(flagship_cfg_dict(image_size, bn_folded))
+def flagship_cfg(image_size=(256, 256), bn_folded: bool = False,
+                 lazy_deform: bool = True) -> EgoRearNetCfg:
+    """The flagship config at ``image_size``; see :func:`flagship_cfg_dict`."""
+    return EgoRearNetCfg.from_dict(flagship_cfg_dict(image_size, bn_folded,
+                                                     lazy_deform))
 
 
 def build(image_size=(256, 256), device=None, dtype=torch.float32,
-          bn_folded: bool = False, seed: int = 0):
+          bn_folded: bool = False, seed: int = 0, lazy_deform: bool = True):
     """Build the flagship model with random weights from ``seed``.
 
     ``device=None`` means ``cuda``; without CUDA this raises, it never falls
     back to the CPU (pass ``device="cpu"`` explicitly). With ``bn_folded``
     the model is the serving variant: the same seeded weights with eval-mode
     BatchNorm folded into the convs in fp32, before the cast to ``dtype``.
-    Returns ``(model, rig)``, the model in eval mode.
+    ``lazy_deform=False`` builds the reference computation order (the same
+    parameters, so the same seed gives the same weights). Returns
+    ``(model, rig)``, the model in eval mode.
     """
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build: CUDA is not available; pass device='cpu' "
                            "to build on the CPU")
-    cfg = flagship_cfg(image_size)
+    cfg = flagship_cfg(image_size, lazy_deform=lazy_deform)
     model = init_weights(EgoRearNet(cfg), torch.Generator().manual_seed(seed))
     if bn_folded:
-        folded = EgoRearNet(flagship_cfg(image_size, bn_folded=True))
+        folded = EgoRearNet(flagship_cfg(image_size, bn_folded=True,
+                                         lazy_deform=lazy_deform))
         folded.load_state_dict(fold_batchnorm(model.state_dict()), strict=True)
         model = folded
     model = model.to(device=device, dtype=dtype).eval()
@@ -113,17 +125,19 @@ FLAGSHIP_OPTIM = dict(lr=1e-3, weight_decay=5e-4, lr_decay_epochs=(8, 10),
 
 def build_train(image_size=(256, 256), device=None,
                 precision: str = "bf16-mixed", seed: int = 0, *,
-                steps_per_epoch: int, **optim):
+                steps_per_epoch: int, lazy_deform: bool = True, **optim):
     """The flagship stage-3 training set-up: ``(Pose3DTask, Trainer)``.
 
     Random weights from ``seed``, on ``cuda`` unless ``device`` says
-    otherwise (without CUDA this raises). The optimizer follows
+    otherwise (without CUDA this raises); ``lazy_deform=False`` trains the
+    reference computation order. The optimizer follows
     ``configs/ego4view_syn_pose3d.yaml`` (:data:`FLAGSHIP_OPTIM`); ``optim``
     overrides any of its keys. ``steps_per_epoch`` (the loader's length)
     places the lr milestones. The trainer's state is initialised.
     """
     device = torch.device("cuda" if device is None else device)
-    task = Pose3DTask(flagship_cfg_dict(image_size), device=device, seed=seed)
+    task = Pose3DTask(flagship_cfg_dict(image_size, lazy_deform=lazy_deform),
+                      device=device, seed=seed)
     unknown = set(optim) - set(FLAGSHIP_OPTIM)
     if unknown:
         raise TypeError(f"build_train: unknown optimizer settings {sorted(unknown)}")

@@ -25,7 +25,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("lazy_deform_sample", "lazy_deform_sample_bwd")
+KERNELS = ("lazy_deform_sample", "lazy_deform_sample_bwd", "deform_sample",
+           "deform_sample_bwd")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

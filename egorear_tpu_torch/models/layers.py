@@ -1,6 +1,7 @@
 """Transformer building blocks shared by the MVFex and Pose3D stages (the JAX
-package's ``models/layers.py``): FFN, MultiheadAttention, the lazy
-deformable attention, the align-corners resizes, and the weight init.
+package's ``models/layers.py``): FFN, MultiheadAttention, the deformable
+attention in both computation orders (reference and lazy), the
+align-corners resizes, and the weight init.
 
 Layout: feature maps are NCHW; token sequences are (B, L, C). A flax
 ``Dense`` that the JAX package applies to an NHWC map becomes a
@@ -20,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from egorear_tpu_torch.ops.deform_attn import lazy_deform_sample
+from egorear_tpu_torch.ops.deform_attn import deformable_sampling, lazy_deform_sample
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -110,36 +111,25 @@ def deform_offset_bias(n_heads: int, n_points: int) -> torch.Tensor:
     return (grid * ring).reshape(-1)
 
 
-class MSDeformAttnLazy(nn.Module):
-    """Deformable attention that samples RAW memory and projects afterwards.
-
-    Identical in value to single-level deformable attention over
-    ``memory = feat @ mem_kernel + mem_bias (+ pos)`` followed by its value
-    projection: linear maps and additive position tables commute with
-    attention-weighted bilinear sampling, so the memory and value
-    projections run on the ~Q*heads sampled vectors instead of the H*W
-    grid. Zero-padded corners mean constants do not sample to themselves at
-    borders, so a ones channel is sampled alongside and scales every constant
-    term (mem_bias, value bias).
+class MSDeformAttn(nn.Module):
+    """Single-level multi-head deformable attention in the reference
+    computation order (mmcv MSDA; the JAX package's ``MSDeformAttn``):
+    ``value_proj`` on every grid cell, per-head bilinear sampling of the
+    projected value map at ``reference_points + offsets / (W, H)``, weighted
+    by softmaxed attention weights, then ``output_proj``.
 
     The attribute ``impl`` is ``"kernel"``: sample through
-    :func:`lazy_deform_sample` (the CUDA kernels forward and backward on a
+    :func:`deformable_sampling` (the CUDA kernels forward and backward on a
     card, the plain versions on the CPU). Checks of the kernels set it to
     ``"plain"`` to run the plain versions on the card.
     """
 
-    def __init__(self, d_model: int = 256, n_heads: int = 8, n_points: int = 16,
-                 pos_block: bool = False):
+    def __init__(self, d_model: int = 256, n_heads: int = 8, n_points: int = 16):
         super().__init__()
         self.d_model, self.n_heads, self.n_points = d_model, n_heads, n_points
-        # Layout of per-group mem_pos tables along the folded batch: False =
-        # INTERLEAVED (element i uses table i % G); True = contiguous BLOCKS
-        # (view-major fold, table i // (N/G)).
-        self.pos_block = pos_block
         self.impl = "kernel"
         self.sampling_offsets = nn.Linear(d_model, n_heads * n_points * 2)
         self.attention_weights = nn.Linear(d_model, n_heads * n_points)
-        # value_proj is applied post-sampling, through its weights only.
         self.value_proj = nn.Linear(d_model, d_model)
         self.output_proj = nn.Linear(d_model, d_model)
 
@@ -154,6 +144,63 @@ class MSDeformAttnLazy(nn.Module):
             xavier_uniform_(lin.weight, gen)
             nn.init.zeros_(lin.bias)
 
+    def _plain(self) -> bool:
+        if self.impl not in ("kernel", "plain"):
+            raise ValueError(f"unknown sampling impl {self.impl!r}")
+        return self.impl == "plain"
+
+    def _locations(self, query, reference_points, spatial_shape):
+        """Sampling locations (B, Q, nh, P, 2) in the activation dtype and
+        softmaxed attention weights (B, Q, nh, P)."""
+        B, Q, _ = query.shape
+        H, W = spatial_shape
+        nh, P = self.n_heads, self.n_points
+        offsets = self.sampling_offsets(query).reshape(B, Q, nh, P, 2)
+        weights = self.attention_weights(query).reshape(B, Q, nh, P)
+        weights = torch.softmax(weights, dim=-1)
+        normalizer = torch.tensor([W, H], dtype=offsets.dtype,
+                                  device=offsets.device)
+        return reference_points[:, :, None, None, :] + offsets / normalizer, weights
+
+    def forward(self, query, reference_points, value_flat, spatial_shape):
+        """query (B, Q, C); reference_points (B, Q, 2) in [0, 1] (x, y);
+        value_flat (B, H*W, C) the memory on the grid, row-major."""
+        plain = self._plain()
+        H, W = spatial_shape
+        value = self.value_proj(value_flat).reshape(
+            query.shape[0], H, W, self.n_heads, -1)
+        loc, weights = self._locations(query, reference_points, spatial_shape)
+        out = deformable_sampling(value, loc, weights, plain=plain)
+        return self.output_proj(out)
+
+
+class MSDeformAttnLazy(MSDeformAttn):
+    """Deformable attention that samples RAW memory and projects afterwards.
+
+    Identical in value to :class:`MSDeformAttn` over
+    ``memory = feat @ mem_kernel + mem_bias (+ pos)``: linear maps and
+    additive position tables commute with attention-weighted bilinear
+    sampling, so the memory and value projections run on the ~Q*heads
+    sampled vectors instead of the H*W grid. Zero-padded corners mean
+    constants do not sample to themselves at borders, so a ones channel is
+    sampled alongside and scales every constant term (mem_bias, value bias).
+    The parameters are :class:`MSDeformAttn`'s, so one state dict loads into
+    either order.
+
+    The attribute ``impl`` is ``"kernel"``: sample through
+    :func:`lazy_deform_sample` (the CUDA kernels forward and backward on a
+    card, the plain versions on the CPU). Checks of the kernels set it to
+    ``"plain"`` to run the plain versions on the card.
+    """
+
+    def __init__(self, d_model: int = 256, n_heads: int = 8, n_points: int = 16,
+                 pos_block: bool = False):
+        super().__init__(d_model, n_heads, n_points)
+        # Layout of per-group mem_pos tables along the folded batch: False =
+        # INTERLEAVED (element i uses table i % G); True = contiguous BLOCKS
+        # (view-major fold, table i // (N/G)).
+        self.pos_block = pos_block
+
     def forward(self, query, reference_points, feat_raw, spatial_shape,
                 mem_kernel: Optional[torch.Tensor] = None,
                 mem_bias: Optional[torch.Tensor] = None,
@@ -161,29 +208,21 @@ class MSDeformAttnLazy(nn.Module):
         """query (B, Q, C); reference_points (B, Q, 2) in [0, 1] (x, y);
         feat_raw (B, H*W, Cin) raw memory, contiguous; mem_kernel (Cin, C)
         and mem_bias (C,) the memory projection; mem_pos (H*W, C) shared or
-        (G, H*W, C) per group, laid out per ``pos_block``."""
-        if self.impl not in ("kernel", "plain"):
-            raise ValueError(f"unknown sampling impl {self.impl!r}")
+        (G, H*W, C) per group, laid out per ``pos_block``. value_proj is
+        applied post-sampling, through its weights only."""
+        plain = self._plain()
         B, Q, C = query.shape
-        H, W = spatial_shape
-        nh, P = self.n_heads, self.n_points
+        nh = self.n_heads
         ch = C // nh
         Cin = feat_raw.shape[-1]
-
-        offsets = self.sampling_offsets(query).reshape(B, Q, nh, P, 2)
-        weights = self.attention_weights(query).reshape(B, Q, nh, P)
-        weights = torch.softmax(weights, dim=-1)
-        normalizer = torch.tensor([W, H], dtype=offsets.dtype,
-                                  device=offsets.device)
-        loc = reference_points[:, :, None, None, :] + offsets / normalizer
+        loc, weights = self._locations(query, reference_points, spatial_shape)
 
         wv = self.value_proj.weight.t().to(query.dtype)  # (C, C) as x @ wv
         bv = self.value_proj.bias.to(query.dtype)
 
         pos = mem_pos.to(feat_raw.dtype) if mem_pos is not None else None
         s_feat, s_pos, s_one = lazy_deform_sample(
-            feat_raw, loc, weights, pos, self.pos_block,
-            plain=self.impl == "plain")
+            feat_raw, loc, weights, pos, self.pos_block, plain=plain)
 
         wv_h = wv.reshape(C, nh, ch)
         const = bv.reshape(nh, ch)

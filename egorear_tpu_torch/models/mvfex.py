@@ -1,8 +1,10 @@
 """MVFex: multi-view feature-exchange heatmap refinement with joint-query
 adaptation (the JAX package's ``models/mvfex.py``, flagship branch).
 
-Ported branch: 4 views; JQA joint queries; lazy deformable cross-attention
-into every view's raw features; the conv-stack heatmap heads
+Ported branch: 4 views; JQA joint queries; deformable cross-attention into
+every view's features, in the lazy order (``lazy_deform``, the flagship:
+raw features sampled, projected after) or the reference order (the memory
+materialised on the grid); the conv-stack heatmap heads
 (``use_1by1_conv`` off); refinement from the predicted initial heatmaps
 (``use_pred_heatmap_init``). Every other branch raises NotImplementedError.
 
@@ -28,6 +30,7 @@ from egorear_tpu_torch.models.configs import MVFCfg, MVFexNetCfg, TransformerLay
 from egorear_tpu_torch.models.heatmap_net import HeatmapNet
 from egorear_tpu_torch.models.layers import (
     FFN,
+    MSDeformAttn,
     MSDeformAttnLazy,
     MultiheadAttention,
     PointwiseConv,
@@ -49,23 +52,30 @@ def to_tokens(feat: torch.Tensor) -> torch.Tensor:
 
 
 class MultiViewTransformerLayer(nn.Module):
-    """Cross-view lazy deformable attention + spatial MHA + FFN, each with a
+    """Cross-view deformable attention + spatial MHA + FFN, each with a
     residual and a post-LayerNorm.
 
-    The memory is view-major: ``feat_raw`` is (V*B, HW, Cin) with row
-    ``v * B + b``, and a (V, HW, C) ``mem_pos`` is sampled in block mode.
-    Per-view results at invalid anchors are zeroed before the fuse.
+    The memory is view-major, row ``v * B + b``. In the lazy order
+    (``lazy``, the flagship) it is the raw features (V*B, HW, Cin), projected
+    after sampling through ``mem_kernel``/``mem_bias``, and a (V, HW, C)
+    ``mem_pos`` is sampled in block mode. In the reference order it is the
+    materialised memory (V*B, HW, C). Either way the attention is the
+    submodule ``cross_attn``, with the same parameters. Per-view results at
+    invalid anchors are zeroed before the fuse.
     """
 
     def __init__(self, num_views: int, embed_dims: int, feat_shape,
-                 cfg: TransformerLayerCfg = TransformerLayerCfg()):
+                 cfg: TransformerLayerCfg = TransformerLayerCfg(),
+                 lazy: bool = True):
         super().__init__()
         if cfg.use_normal_cross_attn:
             raise NotImplementedError("use_normal_cross_attn is not ported")
         self.num_views = num_views
         self.feat_shape = tuple(feat_shape)
-        self.cross_attn = MSDeformAttnLazy(
-            embed_dims, cfg.cross_attn.num_heads, 16, pos_block=True)
+        self.lazy = lazy
+        heads = cfg.cross_attn.num_heads
+        self.cross_attn = (MSDeformAttnLazy(embed_dims, heads, 16, pos_block=True)
+                           if lazy else MSDeformAttn(embed_dims, heads, 16))
         self.fuse_mlp = nn.Linear(num_views * embed_dims, embed_dims)
         self.norm_cross = layer_norm(embed_dims)
         self.spatial_attn = MultiheadAttention(embed_dims, cfg.spatial_attn.num_heads)
@@ -74,19 +84,27 @@ class MultiViewTransformerLayer(nn.Module):
                        cfg.ffn.ffn_drop)
         self.norm_ffn = layer_norm(embed_dims)
 
-    def forward(self, query, anchors_2d, anchors_valid, feat_raw,
+    def forward(self, query, anchors_2d, anchors_valid, memory,
                 mem_kernel=None, mem_bias=None, mem_pos=None):
         """query (B, J, C); anchors_2d (B, V, J, 2) in [0, 1]; anchors_valid
-        (B, V, J) bool; feat_raw (V*B, HW, Cin) view-major."""
+        (B, V, J) bool; memory view-major, the raw (V*B, HW, Cin) features
+        (lazy order) or the materialised (V*B, HW, C) memory (reference
+        order, which takes no ``mem_*``)."""
         B, J, C = query.shape
         V = self.num_views
         q_folded = query[None].expand(V, B, J, C).reshape(V * B, J, C)
         anchors = anchors_2d.detach().transpose(0, 1).reshape(V * B, J, 2)
         valid = anchors_valid.transpose(0, 1)  # (V, B, J)
 
-        per_view = self.cross_attn(q_folded, anchors, feat_raw, self.feat_shape,
-                                   mem_kernel=mem_kernel, mem_bias=mem_bias,
-                                   mem_pos=mem_pos)
+        if self.lazy:
+            per_view = self.cross_attn(q_folded, anchors, memory, self.feat_shape,
+                                       mem_kernel=mem_kernel, mem_bias=mem_bias,
+                                       mem_pos=mem_pos)
+        elif mem_kernel is None and mem_bias is None and mem_pos is None:
+            per_view = self.cross_attn(q_folded, anchors, memory, self.feat_shape)
+        else:
+            raise ValueError("the reference order takes the materialised "
+                             "memory, not a memory projection")
         pv = per_view.reshape(V, B, J, C)
         pv = torch.where(valid[..., None], pv, torch.zeros_like(pv))
         fused = self.fuse_mlp(pv.permute(1, 2, 0, 3).reshape(B, J, V * C))
@@ -122,8 +140,6 @@ class MVFexRefiner(nn.Module):
                 "only the joint_query_adaptation query mode is ported")
         if cfg.use_1by1_conv:
             raise NotImplementedError("use_1by1_conv is not ported")
-        if not cfg.lazy_deform:
-            raise NotImplementedError("lazy_deform: false is not ported")
         h, w = feat_shape
         C, Cin, J, V = cfg.embed_dims, cfg.input_dims, num_heatmap, num_views
         side = int(C**0.5)
@@ -139,8 +155,8 @@ class MVFexRefiner(nn.Module):
         self.fc_bfb = nn.Linear(BFB_DIMS, C)
         self.joint_query_embed = nn.Parameter(torch.empty(J, C))
         self.fc_query = nn.Linear(C, C)
-        # The 1x1 memory projection: never applied to the grid, folded into
-        # the post-sampling projections by MSDeformAttnLazy.
+        # The 1x1 memory projection: in the lazy order never applied to the
+        # grid, folded into the post-sampling projections by MSDeformAttnLazy.
         self.frame_feat_multi_view_proj = nn.Linear(Cin, C)
         self.frame_feat_multi_view_pos_embed = nn.Parameter(torch.empty(1, V, h * w, C))
         self.ff_proj_0 = PointwiseConv(Cin, 2 * Cin)
@@ -149,7 +165,7 @@ class MVFexRefiner(nn.Module):
         for i in range(cfg.num_former_layers):
             add_modules(self, **{
                 f"transformer_{i}": MultiViewTransformerLayer(
-                    V, C, feat_shape, cfg.transformer),
+                    V, C, feat_shape, cfg.transformer, lazy=cfg.lazy_deform),
                 f"post_norm_{i}": layer_norm(C),
                 f"head_{i}": TransformerHeadLayer(J, Cin),
                 f"ff_refined_proj_{i}_0": PointwiseConv(Cin, Cin),
@@ -186,6 +202,18 @@ class MVFexRefiner(nn.Module):
         mem_kernel = self.frame_feat_multi_view_proj.weight.t()  # (Cin, C)
         mem_bias = self.frame_feat_multi_view_proj.bias
         mem_pos = self.frame_feat_multi_view_pos_embed[0]  # (V, HW, C)
+        if self.cfg.lazy_deform:
+            memory, mem = feat_tokens, dict(mem_kernel=mem_kernel,
+                                            mem_bias=mem_bias, mem_pos=mem_pos)
+        else:
+            # The reference order: the memory on the grid, view-major, each
+            # view block of tokens plus its own (HW, C) table, added in the
+            # JAX package's order so that bf16 rounds the same way.
+            V, dt = self.num_views, feat_tokens.dtype
+            tokens = feat_tokens.reshape(V, -1, *feat_tokens.shape[1:])
+            memory = (torch.matmul(tokens, mem_kernel.to(dt)) + mem_bias.to(dt)
+                      + mem_pos[:, None].to(dt)).flatten(0, 1)
+            mem = {}
 
         # ---- downsampled frame features for the residual head ----
         f = F.relu(self.ff_proj_0(frame_feat))
@@ -195,8 +223,7 @@ class MVFexRefiner(nn.Module):
         list_heatmap, list_feat = [], []
         for i in range(self.cfg.num_former_layers):
             x = getattr(self, f"transformer_{i}")(
-                x, anchors_2d, anchors_valid, feat_tokens,
-                mem_kernel=mem_kernel, mem_bias=mem_bias, mem_pos=mem_pos)
+                x, anchors_2d, anchors_valid, memory, **mem)
             # The post-normed (B, J, C) tokens read as J maps of side x side:
             # in NCHW that is a plain reshape, channels = joints.
             _x = getattr(self, f"post_norm_{i}")(x)

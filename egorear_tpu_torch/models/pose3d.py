@@ -3,8 +3,8 @@
 
 ``Pose3DLifter``: a conv-downsample MLP proposes 3D joints; the rig projects
 them (the reference's chained offsets, ``CameraRig.project``) into every
-view; ``num_former_layers`` lazy deformable transformer layers attend at
-those anchors and each regresses a 3D offset from the mutated anchor state.
+view; ``num_former_layers`` deformable transformer layers (lazy or
+reference order, per ``lazy_deform``) attend at those anchors and each regresses a 3D offset from the mutated anchor state.
 The avgpool / heatmap proposals and the normalized-MLP output are not
 ported and raise NotImplementedError.
 """
@@ -41,8 +41,6 @@ class Pose3DLifter(nn.Module):
                                       "is ported")
         if cfg.norm_mlp_pred:
             raise NotImplementedError("norm_mlp_pred is not ported")
-        if not cfg.lazy_deform:
-            raise NotImplementedError("lazy_deform: false is not ported")
         self.cfg = cfg
         self.num_views = num_views
         self.use_pred_heatmap_init = use_pred_heatmap_init
@@ -51,7 +49,9 @@ class Pose3DLifter(nn.Module):
         self.feat_shape = (h, w)
         Cin, C, J = cfg.input_dims, cfg.embed_dims, cfg.num_joints
 
-        self.feat_proj = nn.Linear(Cin, C)  # folded post-sampling, never on the grid
+        # The memory projection: folded post-sampling in the lazy order, on
+        # the grid in the reference order.
+        self.feat_proj = nn.Linear(Cin, C)
         self.conv_ff_0 = nn.Conv2d(Cin, Cin // 2, 1)
         self.conv_ff_1 = conv3x3(Cin // 2, Cin, stride=2)
         self.maxpool = nn.MaxPool2d(2, 2)
@@ -70,7 +70,8 @@ class Pose3DLifter(nn.Module):
         for idx in range(cfg.num_former_layers):
             add_modules(self, **{
                 f"transformer_{idx}": MultiViewTransformerLayer(
-                    num_views, C, self.feat_shape, cfg.transformer),
+                    num_views, C, self.feat_shape, cfg.transformer,
+                    lazy=cfg.lazy_deform),
                 f"post_norm_{idx}": layer_norm(C),
                 f"reg_mlp_{idx}_out": nn.Linear(C, 3),
             })
@@ -104,6 +105,12 @@ class Pose3DLifter(nn.Module):
         feat_tokens = to_tokens(frame_feats)
         mem_kernel = self.feat_proj.weight.t()
         mem_bias = self.feat_proj.bias
+        if cfg.lazy_deform:
+            memory, mem = feat_tokens, dict(mem_kernel=mem_kernel, mem_bias=mem_bias)
+        else:  # the reference order: the memory on the grid, no pos table
+            dt = feat_tokens.dtype
+            memory = torch.matmul(feat_tokens, mem_kernel.to(dt)) + mem_bias.to(dt)
+            mem = {}
 
         mlp_pred = self._proposal(frame_feats_final)
         B = mlp_pred.shape[0]
@@ -123,8 +130,7 @@ class Pose3DLifter(nn.Module):
         anchors_base = anchors_mut.detach()
         for idx in range(cfg.num_former_layers):
             x = getattr(self, f"transformer_{idx}")(
-                x, anchors_2d, anchors_valid, feat_tokens,
-                mem_kernel=mem_kernel, mem_bias=mem_bias)
+                x, anchors_2d, anchors_valid, memory, **mem)
             o = getattr(self, f"post_norm_{idx}")(x)
             for i in range(cfg.num_pred_mlp_layers - 1):
                 o = F.gelu(getattr(self, f"reg_mlp_{idx}_{i}")(o))

@@ -1,8 +1,15 @@
-"""Lazy deformable sampling: raw memory (plus an optional per-group position
-table and an implicit ones channel) sampled at deformable locations.
+"""Deformable sampling, the two ops of the JAX package's ``ops/deform_attn.py``.
 
-Counterpart of ``lazy_deform_sample`` in the JAX package's
-``ops/deform_attn.py``. Semantics (``grid_sample(align_corners=False,
+* Per-head sampling of a value map, :func:`deformable_sampling` (the mmcv
+  MSDA contract; the reference computation order, ``lazy_deform: false``),
+  and its head-shared form :func:`deformable_sampling_shared`: see the
+  section "Per-head deformable sampling" below.
+* Lazy deformable sampling, :func:`lazy_deform_sample`: raw memory (plus an
+  optional per-group position table and an implicit ones channel) sampled
+  at deformable locations (the flagship order, ``lazy_deform: true``).
+
+Lazy deformable sampling is the counterpart of ``lazy_deform_sample`` in
+the JAX package. Semantics (``grid_sample(align_corners=False,
 padding_mode='zeros')``): for each (batch b, query q, head n) row,
 
     x = loc_x * W - 0.5,  y = loc_y * H - 0.5
@@ -101,6 +108,39 @@ def _group_of(B: int, G: int, pos_block: bool, device) -> torch.Tensor:
     return b // (B // G) if pos_block else b % G
 
 
+def _corner_terms(loc, H: int, W: int):
+    """The 4 bilinear corners of every sampling point, in the order (y0, x0),
+    (y0, x1), (y1, x0), (y1, x1), each (..., 4): the flat cell index (clamped
+    into the grid), the weight ``w_c = wy_c * wx_c`` and its x and y factors
+    for the location gradient, ``wy_c * dwx_c`` and ``dwy_c * wx_c``, with
+    ``dwx_c, dwy_c = -1 | +1``. Out-of-grid corners have zero weight and
+    zero derivatives (border masks are piecewise constant; ``floor`` has no
+    gradient)."""
+    x = loc[..., 0].float() * W - 0.5
+    y = loc[..., 1].float() * H - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    lx, ly = x - x0, y - y0
+    x0i, y0i = x0.long(), y0.long()
+    cy = torch.stack([y0i, y0i, y0i + 1, y0i + 1], dim=-1)
+    cx = torch.stack([x0i, x0i + 1, x0i, x0i + 1], dim=-1)
+    ok = ((cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)).float()
+    wy = torch.stack([1 - ly, 1 - ly, ly, ly], dim=-1) * ok
+    wx = torch.stack([1 - lx, lx, 1 - lx, lx], dim=-1) * ok
+    sign = torch.tensor([-1.0, 1.0], device=loc.device)
+    dwy = sign.repeat_interleave(2) * ok  # (-1, -1, +1, +1)
+    dwx = sign.repeat(2) * ok  # (-1, +1, -1, +1)
+    cell = (cy * W + cx).clamp(0, H * W - 1)
+    return cell, wy * wx, wy * dwx, dwy * wx
+
+
+def _loc_weight_grads(aw, wb, gx, gy, A, H: int, W: int):
+    """``(d_attn_w, d_loc)`` from the corner adjoints ``A`` (..., 4)."""
+    d_w = (wb * A).sum(-1)
+    d_x = aw * W * (gx * A).sum(-1)
+    d_y = aw * H * (gy * A).sum(-1)
+    return d_w, torch.stack([d_x, d_y], dim=-1)
+
+
 def lazy_deform_sample_backward_plain(feat, loc, attn_w, pos, pos_block,
                                       g_feat, g_pos, g_one,
                                       need_feat: bool = True,
@@ -124,26 +164,10 @@ def lazy_deform_sample_backward_plain(feat, loc, attn_w, pos, pos_block,
     is given and ``need_pos``.
     """
     B, HW, Cin = feat.shape
-    Q, nh, P = attn_w.shape[1:]
     H = W = _grid_side(HW)
     dev = feat.device
     aw = attn_w.float()
-    x = loc[..., 0].float() * W - 0.5
-    y = loc[..., 1].float() * H - 0.5
-    x0, y0 = torch.floor(x), torch.floor(y)
-    lx, ly = x - x0, y - y0
-    x0i, y0i = x0.long(), y0.long()
-    # Corners in the order (y0, x0), (y0, x1), (y1, x0), (y1, x1): (B, Q, nh, P, 4).
-    cy = torch.stack([y0i, y0i, y0i + 1, y0i + 1], dim=-1)
-    cx = torch.stack([x0i, x0i + 1, x0i, x0i + 1], dim=-1)
-    ok = ((cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)).float()
-    wy = torch.stack([1 - ly, 1 - ly, ly, ly], dim=-1) * ok
-    wx = torch.stack([1 - lx, lx, 1 - lx, lx], dim=-1) * ok
-    sign = torch.tensor([-1.0, 1.0], device=dev)
-    dwy = sign.repeat_interleave(2) * ok  # (-1, -1, +1, +1)
-    dwx = sign.repeat(2) * ok  # (-1, +1, -1, +1)
-    wb = wy * wx
-    cell = (cy * W + cx).clamp(0, HW - 1)
+    cell, wb, gx, gy = _corner_terms(loc, H, W)
 
     def gathered_dot(table, rows, g):
         # table (R, X) fp32; rows (B, Q, nh, P, 4); g (B, Q, nh, X).
@@ -162,11 +186,7 @@ def lazy_deform_sample_backward_plain(feat, loc, attn_w, pos, pos_block,
         A = A + gathered_dot(pos3.float().reshape(G * HW, C), pos_rows, gp)
     A = A + g_one.float()[..., None]  # (B, Q, nh, 1, 1): the ones channel
 
-    d_w = (wb * A).sum(-1)
-    d_x = aw * W * (wy * dwx * A).sum(-1)
-    d_y = aw * H * (dwy * wx * A).sum(-1)
-    d_loc = torch.stack([d_x, d_y], dim=-1)
-
+    d_w, d_loc = _loc_weight_grads(aw, wb, gx, gy, A, H, W)
     sw = aw[..., None] * wb  # scatter weight of each corner
 
     def scatter(n_rows, rows, g):
@@ -344,10 +364,9 @@ def _backward_kernel(feat, loc, attn_w, pos, pos_block, g_feat, g_pos, g_one,
     return d_feat, d_loc, d_w, d_pos
 
 
-def _check_device(feat):
-    if feat.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"lazy_deform_sample runs on cpu or cuda tensors, "
-                         f"got {feat.device}")
+def _check_device(x, op: str = "lazy_deform_sample"):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op} runs on cpu or cuda tensors, got {x.device}")
 
 
 def lazy_deform_sample_backward(feat, loc, attn_w, pos, pos_block, g_feat,
@@ -422,3 +441,279 @@ def lazy_deform_sample(feat, loc, attn_w, pos=None, pos_block: bool = False,
 
 
 lazy_deform_sample.launches = 0
+
+
+# -- Per-head deformable sampling (the reference computation order) ---------------
+#
+# Counterpart of ``deformable_sampling`` in the JAX package (its ``gather``,
+# ``onehot`` and ``pallas`` implementations; the Pallas kernel is
+# ``_make_deform_kernel``). For each (batch b, query q, head h),
+#
+#     out[b, q, h*ch:(h+1)*ch] = sum_p attn_w[b, q, h, p] * bilinear(value[b, :, :, h], loc[b, q, h, p])
+#
+# with the pixel mapping and border rule of lazy deformable sampling above.
+# Two versions of one contract, forward and backward:
+#   * :func:`deformable_sampling_plain` and
+#     :func:`deformable_sampling_backward_plain` -- PyTorch, for CPU tensors
+#     and as the kernels' oracles;
+#   * ``csrc/deform_sample.cu`` and ``csrc/deform_sample_bwd.cu``, which
+#     :class:`DeformableSampling` launches for CUDA tensors, or raises.
+
+# A forward block's shared memory besides its corner records: the partial
+# sums of its point slices (see csrc/deform_sample.cu), at most this many bytes.
+_SAMPLING_PARTIALS_BYTES = 4 * 64 * 4 * 4
+
+
+def deformable_sampling_plain(value, loc, attn_w) -> torch.Tensor:
+    """Plain PyTorch version: ``F.grid_sample`` per head.
+
+    value (B, H, W, nh, ch); loc (B, Q, nh, P, 2) in [0, 1], (x, y); attn_w
+    (B, Q, nh, P). Computes in fp32 and returns (B, Q, nh*ch) in
+    ``value.dtype`` (the contract of the JAX package's ``_sample_gather``).
+    """
+    B, H, W, nh, ch = value.shape
+    Q, P = attn_w.shape[1], attn_w.shape[3]
+    v = value.float().permute(0, 3, 4, 1, 2).reshape(B * nh, ch, H, W)
+    grid = (2.0 * loc.float() - 1.0).transpose(1, 2).reshape(B * nh, Q, P, 2)
+    s = F.grid_sample(v, grid, mode="bilinear", padding_mode="zeros",
+                      align_corners=False)  # (B*nh, ch, Q, P)
+    aw = attn_w.float().transpose(1, 2).reshape(B * nh, 1, Q, P)
+    s = (s * aw).sum(-1).reshape(B, nh, ch, Q)
+    return s.permute(0, 3, 1, 2).reshape(B, Q, nh * ch).to(value.dtype)
+
+
+def deformable_sampling_backward_plain(value, loc, attn_w, g,
+                                       need_value: bool = True):
+    """Plain PyTorch VJP of :func:`deformable_sampling_plain`: the analytic
+    VJP of the JAX package's ``_sample_onehot`` (which ``_pallas_bwd_rule``
+    differentiates), written with gathers and ``index_add_``.
+
+    With the corners c of each point (b, q, h, p), their bilinear weights
+    ``w_c = wy_c * wx_c`` (zero out of the grid; border masks are piecewise
+    constant and ``floor`` has no gradient), ``a = attn_w`` and the adjoint
+    ``A_c = value[b, c, h] . g[b, q, h]``:
+
+        d_value[b, c, h] += a * w_c * g[b, q, h]
+        d_attn_w = sum_c w_c * A_c
+        d_loc = (a * W * sum_c wy_c * dwx_c * A_c, a * H * sum_c dwy_c * wx_c * A_c)
+
+    g is (B, Q, nh*ch). All in fp32; returns ``(d_value | None, d_loc,
+    d_attn_w)`` with ``d_value`` in ``value.dtype`` (None unless
+    ``need_value``), ``d_loc`` and ``d_attn_w`` in fp32.
+    """
+    B, H, W, nh, ch = value.shape
+    Q = attn_w.shape[1]
+    dev = value.device
+    aw = attn_w.float()
+    cell, wb, gx, gy = _corner_terms(loc, H, W)  # (B, Q, nh, P, 4)
+    # Row of (b, cell, h) in value viewed as (B*H*W*nh, ch).
+    rows = ((torch.arange(B, device=dev).view(B, 1, 1, 1, 1) * (H * W) + cell) * nh
+            + torch.arange(nh, device=dev).view(1, 1, nh, 1, 1))
+    gh = g.float().reshape(B, Q, nh, 1, 1, ch)
+    A = (value.float().reshape(-1, ch)[rows] * gh).sum(-1)  # (B, Q, nh, P, 4)
+
+    d_w, d_loc = _loc_weight_grads(aw, wb, gx, gy, A, H, W)
+    d_value = None
+    if need_value:
+        src = ((aw[..., None] * wb)[..., None] * gh).reshape(-1, ch)
+        d_value = torch.zeros(B * H * W * nh, ch, device=dev, dtype=torch.float32)
+        d_value.index_add_(0, rows.reshape(-1), src)
+        d_value = d_value.reshape(value.shape).to(value.dtype)
+    return d_value, d_loc, d_w
+
+
+def _check_sampling_inputs(value, loc, attn_w):
+    if value.dtype not in _DTYPE_CODES:
+        raise TypeError(f"deformable_sampling kernel takes float32 or bfloat16 "
+                        f"value, got {value.dtype}")
+    if value.dim() != 5 or loc.dim() != 5 or attn_w.dim() != 4:
+        raise ValueError("expected value (B, H, W, nh, ch), loc (B, Q, nh, P, 2), "
+                         "attn_w (B, Q, nh, P)")
+    B, _, _, nh, _ = value.shape
+    if (loc.shape[:4] != attn_w.shape or loc.shape[-1] != 2
+            or attn_w.shape[0] != B or attn_w.shape[2] != nh):
+        raise ValueError(f"loc {tuple(loc.shape)} and attn_w "
+                         f"{tuple(attn_w.shape)} do not match value "
+                         f"{tuple(value.shape)}")
+    for t in (loc, attn_w):
+        if t.device != value.device:
+            raise ValueError("deformable_sampling inputs must share one device")
+    if not value.is_contiguous():
+        raise ValueError("deformable_sampling kernel needs a contiguous value")
+    P = attn_w.shape[3]
+    if 32 * nh * P + _SAMPLING_PARTIALS_BYTES > _SMEM_LIMIT:
+        raise ValueError(f"nh * P = {nh * P} corners exceed the kernel's "
+                         f"shared memory")
+
+
+def _sampling_bwd_smem_bytes(nh: int, P: int, ch: int) -> int:
+    """Shared memory of the backward kernel: the fp32 upstream-gradient row
+    of every head, 4 corner records of 16 bytes per point, one weight per
+    point (see ``csrc/deform_sample_bwd.cu``)."""
+    return 4 * nh * ch + nh * P * (4 * 16 + 4)
+
+
+def _check_sampling_backward_inputs(value, loc, attn_w, g):
+    _check_sampling_inputs(value, loc, attn_w)
+    B, _, _, nh, ch = value.shape
+    Q, P = attn_w.shape[1], attn_w.shape[3]
+    if g is None or tuple(g.shape) != (B, Q, nh * ch):
+        raise ValueError(f"g must be {(B, Q, nh * ch)}, got "
+                         f"{None if g is None else tuple(g.shape)}")
+    if g.dtype != value.dtype:
+        raise TypeError(f"g must have value's dtype {value.dtype}, got {g.dtype}")
+    if g.device != value.device:
+        raise ValueError("deformable_sampling gradients must be on value's device")
+    if not g.is_contiguous() or g.data_ptr() % 16:
+        raise ValueError("the backward kernel needs a contiguous g with a "
+                         "16-byte aligned base")
+    if _sampling_bwd_smem_bytes(nh, P, ch) > _SMEM_LIMIT:
+        raise ValueError(f"nh={nh}, P={P}, ch={ch} exceed the backward "
+                         f"kernel's shared memory")
+
+
+def _vector_width(value) -> int:
+    """4 channels a load where every head slice starts on a 4-element
+    boundary of an aligned base, else 1 (the kernels' scalar path)."""
+    ch = value.shape[-1]
+    return 4 if ch % 4 == 0 and value.data_ptr() % (4 * value.element_size()) == 0 else 1
+
+
+def _sampling_kernel(value, loc, attn_w) -> torch.Tensor:
+    """Launch ``csrc/deform_sample.cu`` on CUDA tensors."""
+    _check_sampling_inputs(value, loc, attn_w)
+    B, H, W, nh, ch = value.shape
+    Q, P = attn_w.shape[1], attn_w.shape[3]
+    loc = loc.to(torch.float32).contiguous()
+    attn_w = attn_w.to(torch.float32).contiguous()
+    out = torch.empty(B, Q, nh * ch, device=value.device, dtype=value.dtype)
+
+    fn = kernels.load("deform_sample").egorear_deform_sample
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream(value.device).cuda_stream
+        rc = fn(_ptr(value), _ptr(loc), _ptr(attn_w), _ptr(out), B, H, W, Q, nh,
+                ch, P, _vector_width(value), _DTYPE_CODES[value.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"deformable_sampling kernel launch failed: CUDA "
+                           f"error {rc}")
+    deformable_sampling.launches += 1
+    return out
+
+
+def _sampling_backward_kernel(value, loc, attn_w, g, need_value: bool):
+    """Launch ``csrc/deform_sample_bwd.cu`` on CUDA tensors."""
+    loc = loc.to(torch.float32).contiguous()
+    attn_w = attn_w.to(torch.float32).contiguous()
+    g = _aligned16(g)
+    _check_sampling_backward_inputs(value, loc, attn_w, g)
+    B, H, W, nh, ch = value.shape
+    Q, P = attn_w.shape[1], attn_w.shape[3]
+    dev, f32 = value.device, torch.float32
+    # fp32 target of the atomic scatter, zeroed; cast at the end for bf16.
+    d_value = torch.zeros(value.shape, device=dev, dtype=f32) if need_value else None
+    d_loc = torch.empty(B, Q, nh, P, 2, device=dev, dtype=f32)
+    d_w = torch.empty(B, Q, nh, P, device=dev, dtype=f32)
+
+    fn = kernels.load("deform_sample_bwd").egorear_deform_sample_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(_ptr(value), _ptr(loc), _ptr(attn_w), _ptr(g), _ptr(d_value),
+                _ptr(d_loc), _ptr(d_w), B, H, W, Q, nh, ch, P,
+                _vector_width(value), _DTYPE_CODES[value.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"deformable_sampling backward kernel launch failed: "
+                           f"CUDA error {rc}")
+    deformable_sampling_backward.launches += 1
+    if d_value is not None:
+        d_value = d_value.to(value.dtype)
+    return d_value, d_loc, d_w
+
+
+def deformable_sampling_backward(value, loc, attn_w, g, need_value: bool = True):
+    """VJP of :func:`deformable_sampling`; see
+    :func:`deformable_sampling_backward_plain` for the contract.
+
+    On CPU tensors this is the plain version. On CUDA tensors it launches the
+    hand-written kernel (``csrc/deform_sample_bwd.cu``) or raises. Each launch
+    adds one to ``deformable_sampling_backward.launches``.
+    """
+    _check_device(value, "deformable_sampling")
+    fn = (_sampling_backward_kernel if value.device.type == "cuda"
+          else deformable_sampling_backward_plain)
+    return fn(value, loc, attn_w, g, need_value)
+
+
+deformable_sampling_backward.launches = 0
+
+
+class DeformableSampling(torch.autograd.Function):
+    """Autograd node of per-head deformable sampling.
+
+    ``forward(value, loc, attn_w, plain)``: with ``plain`` or on CPU tensors
+    the plain versions run forward and backward; on CUDA tensors otherwise
+    the two kernels. ``loc`` and ``attn_w`` arrive in fp32 (the caller casts
+    them inside the graph, as ``_sample_pallas_fwd`` does, so autograd casts
+    their gradients back). Gradients are computed only for the inputs that
+    need them; ``d_value`` (the zero-fill and the scatter) only when
+    ``value`` needs one.
+    """
+
+    @staticmethod
+    def forward(ctx, value, loc, attn_w, plain):
+        use_kernel = value.device.type == "cuda" and not plain
+        fn = _sampling_kernel if use_kernel else deformable_sampling_plain
+        out = fn(value, loc, attn_w)
+        ctx.save_for_backward(value, loc, attn_w)
+        ctx.use_kernel = use_kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        value, loc, attn_w = ctx.saved_tensors
+        need_value, need_loc, need_w = ctx.needs_input_grad[:3]
+        fn = (_sampling_backward_kernel if ctx.use_kernel
+              else deformable_sampling_backward_plain)
+        d_value, d_loc, d_w = fn(value, loc, attn_w, g, need_value)
+        return d_value, d_loc if need_loc else None, d_w if need_w else None, None
+
+
+def deformable_sampling(value, loc, attn_w, plain: bool = False) -> torch.Tensor:
+    """Attention-weighted bilinear sampling of per-head value maps; see
+    :func:`deformable_sampling_plain` for the contract. Differentiable in
+    ``value``, ``loc`` and ``attn_w``.
+
+    On CPU tensors (or with ``plain``) this runs the plain versions forward
+    and backward. On CUDA tensors it launches the hand-written kernels
+    (``csrc/deform_sample.cu`` forward, ``csrc/deform_sample_bwd.cu``
+    backward) or raises. ``loc`` and ``attn_w`` are cast to fp32 first, as in
+    the JAX package's Pallas path, so bf16 sampling positions are not rounded
+    again. Each forward launch adds one to ``deformable_sampling.launches``.
+    """
+    _check_device(value, "deformable_sampling")
+    return DeformableSampling.apply(value, loc.to(torch.float32),
+                                    attn_w.to(torch.float32), plain)
+
+
+deformable_sampling.launches = 0
+
+
+def deformable_sampling_shared(value, loc, attn_w, plain: bool = False) -> torch.Tensor:
+    """Attention-weighted bilinear sampling of one value map shared by every
+    head (the JAX package's ``deformable_sampling_shared``).
+
+    value (B, H, W, Cs); loc (B, Q, nh, P, 2); attn_w (B, Q, nh, P). Returns
+    (B, Q, nh, Cs). The heads are folded into the queries against a
+    single-head value map, as the JAX package's Pallas path does
+    (``_sample_shared_pallas_fwd_impl``), so this is the same autograd node
+    and, on a card, the same two kernels as :func:`deformable_sampling`.
+    """
+    B, H, W, Cs = value.shape
+    Q, nh, P = loc.shape[1:4]
+    locf = loc.transpose(1, 2).reshape(B, nh * Q, 1, P, 2)
+    wf = attn_w.transpose(1, 2).reshape(B, nh * Q, 1, P)
+    out = deformable_sampling(value.reshape(B, H, W, 1, Cs), locf, wf, plain)
+    return out.reshape(B, nh, Q, Cs).transpose(1, 2)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernel wrappers, forward and backward: their input checks
-(on the CPU) and the kernels against their plain versions (on a card).
+"""The port's CUDA kernel wrappers, forward and backward, of both sampling
+ops (lazy and per-head): their input checks (on the CPU) and the kernels
+against their plain versions (on a card).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. On a machine with an NVIDIA GPU and nvcc, from
@@ -19,6 +20,16 @@ from egorear_tpu_torch.ops.deform_attn import (
     _aligned16,
     _check_backward_inputs,
     _check_cuda_inputs,
+    _check_sampling_backward_inputs,
+    _check_sampling_inputs,
+    _sampling_backward_kernel,
+    _sampling_kernel,
+    _vector_width,
+    deformable_sampling,
+    deformable_sampling_backward,
+    deformable_sampling_backward_plain,
+    deformable_sampling_plain,
+    deformable_sampling_shared,
     lazy_deform_sample,
     lazy_deform_sample_backward,
     lazy_deform_sample_backward_plain,
@@ -154,7 +165,7 @@ def test_backward_check_refuses_what_the_kernel_cannot_take(fault):
 
 
 def _misaligned(x):
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
     view = buf[1:].view(x.shape)
     view.copy_(x)
     return view
@@ -221,3 +232,189 @@ def test_backward_kernel_matches_plain_on_card(pos_mode):
                 scale = float(ww.abs().max())
                 torch.testing.assert_close(g.float().cpu(), ww, atol=rtol * scale,
                                            rtol=0)
+
+
+# -- per-head deformable sampling (the reference order) ----------------------------
+
+
+def _msda_case(ch: int = 64, seed: int = 4):
+    """value (2, 16, 16, 4, ch), Q=15, P=16, locations in [-0.3, 1.3]
+    (corners off every side), weights normalised over the points, and an
+    upstream gradient of the output."""
+    rng = np.random.default_rng(seed)
+    B, H, Q, nh, P = 2, 16, 15, 4, 16
+    value = rng.normal(size=(B, H, H, nh, ch)).astype(np.float32)
+    loc = rng.uniform(-0.3, 1.3, size=(B, Q, nh, P, 2)).astype(np.float32)
+    w = rng.uniform(size=(B, Q, nh, P)).astype(np.float32)
+    w /= w.sum(axis=-1, keepdims=True)
+    g = rng.normal(size=(B, Q, nh * ch)).astype(np.float32)
+    return [torch.from_numpy(x) for x in (value, loc, w, g)]
+
+
+@pytest.mark.parametrize("ch", [64, 32, 13])
+def test_sampling_check_accepts_the_flagship_layout(ch):
+    value, loc, w, g = _msda_case(ch)
+    _check_sampling_inputs(value, loc, w)
+    _check_sampling_inputs(value.bfloat16(), loc, w)
+    _check_sampling_backward_inputs(value, loc, w, g)
+    _check_sampling_backward_inputs(value.bfloat16(), loc, w, g.bfloat16())
+
+
+@pytest.mark.parametrize("fault", [
+    "half", "value_rank", "loc_shape", "heads", "batch", "strided_value",
+    "too_many_points",
+])
+def test_sampling_check_refuses_what_the_kernel_cannot_take(fault):
+    value, loc, w, _ = _msda_case()
+    if fault == "half":
+        value = value.half()
+    elif fault == "value_rank":
+        value = value.reshape(2, 256, 4, 64)
+    elif fault == "loc_shape":
+        loc = loc[:, :, :, :8]
+    elif fault == "heads":
+        value = value.reshape(2, 16, 16, 8, 32)
+    elif fault == "batch":
+        value = torch.cat([value, value])
+    elif fault == "strided_value":
+        value = value.transpose(1, 2)
+    elif fault == "too_many_points":
+        loc = loc.repeat(1, 1, 1, 128, 1)
+        w = w.repeat(1, 1, 1, 128)
+    with pytest.raises((TypeError, ValueError)):
+        _check_sampling_inputs(value, loc, w)
+
+
+@pytest.mark.parametrize("fault", [
+    "g_shape", "g_missing", "g_dtype", "g_misaligned", "g_strided",
+    "too_many_channels", "value_fault",
+])
+def test_sampling_backward_check_refuses_what_the_kernel_cannot_take(fault):
+    value, loc, w, g = _msda_case()
+    if fault == "g_shape":
+        g = g[..., :128]
+    elif fault == "g_missing":
+        g = None
+    elif fault == "g_dtype":
+        g = g.bfloat16()
+    elif fault == "g_misaligned":
+        g = _misaligned(g)
+    elif fault == "g_strided":
+        g = torch.cat([g, g], -1)[..., ::2]
+    elif fault == "too_many_channels":  # upstream rows exceed shared memory
+        value = torch.zeros(2, 4, 4, 4, 4096)
+        g = torch.zeros(2, 15, 4 * 4096)
+    elif fault == "value_fault":  # the forward's checks apply too
+        value = value.half()
+    with pytest.raises((TypeError, ValueError)):
+        _check_sampling_backward_inputs(value, loc, w, g)
+
+
+def test_vector_width_follows_channels_and_alignment():
+    value = _msda_case(64)[0]
+    assert _vector_width(value) == 4 and _vector_width(value.bfloat16()) == 4
+    assert _vector_width(_msda_case(13)[0]) == 1
+    assert _vector_width(_misaligned(value)) == 1  # base 4 bytes off
+
+
+def test_sampling_kernel_wrappers_raise_before_any_launch():
+    """The kernel wrappers check first: what the kernels cannot take raises
+    and is never handed to the plain versions."""
+    value, loc, w, g = _msda_case()
+    before = (deformable_sampling.launches, deformable_sampling_backward.launches)
+    with pytest.raises(TypeError):
+        _sampling_kernel(value.half(), loc, w)
+    with pytest.raises(ValueError):
+        _sampling_kernel(value.transpose(1, 2), loc, w)
+    with pytest.raises(TypeError):
+        _sampling_backward_kernel(value, loc, w, g.bfloat16(), True)
+    assert (deformable_sampling.launches,
+            deformable_sampling_backward.launches) == before
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ch64", "ch32", "ch13", "ch64_misaligned"])
+def test_sampling_kernels_match_plain_on_card(case):
+    """Both kernels vs their plain versions: forward fp32 1e-5 of the
+    largest output (sums in another order), bf16 1e-2 of it (the plain
+    version in fp32 on the same bf16 inputs: one bf16 rounding of each
+    output); backward fp32 1e-4 of each gradient's largest value (atomics in
+    a varying order), bf16 1e-2 (one bf16 rounding of d_value), with and
+    without d_value. ch=13 and a misaligned base take the scalar path.
+    ``chip_smoke.py`` does the same at the flagship shapes."""
+    _needs_card()
+    ch = int(case[2:4])
+    value, loc, w, g = _msda_case(ch)
+    for dtype in (torch.float32, torch.bfloat16):
+        v = value.cuda().to(dtype)
+        if case.endswith("misaligned"):
+            v = _misaligned(v)
+        gc = g.cuda().to(dtype)
+        args = (v, loc.cuda(), w.cuda())
+        want = deformable_sampling_plain(v.float().cpu(), loc, w)
+        before = deformable_sampling.launches
+        got = deformable_sampling(*args)
+        torch.cuda.synchronize()
+        assert deformable_sampling.launches == before + 1
+        assert got.dtype == dtype and got.is_cuda
+        tol = (1e-5 if dtype == torch.float32 else 1e-2) * float(want.abs().max())
+        torch.testing.assert_close(got.float().cpu(), want, atol=tol, rtol=0)
+        for need_value in (True, False):
+            want = deformable_sampling_backward_plain(
+                v.float().cpu(), loc, w, gc.float().cpu(), need_value)
+            before = deformable_sampling_backward.launches
+            got = deformable_sampling_backward(*args, gc, need_value)
+            torch.cuda.synchronize()
+            assert deformable_sampling_backward.launches == before + 1
+            rtol = 1e-4 if dtype == torch.float32 else 1e-2
+            for a, b in zip(got, want):
+                if b is None:
+                    assert a is None
+                    continue
+                scale = float(b.abs().max())
+                torch.testing.assert_close(a.float().cpu(), b.float(),
+                                           atol=rtol * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_sampling_shared_form_and_autograd_on_card():
+    """The head-shared form (Cs = 13) on the card goes through both kernels,
+    and its autograd gradients agree with the plain versions'."""
+    _needs_card()
+    _, loc, w, _ = _msda_case()
+    vs = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, 16, 16, 13)).astype(np.float32))
+    ins = [x.cuda().requires_grad_() for x in (vs, loc, w)]
+    ref = [x.detach().clone().requires_grad_() for x in (vs, loc, w)]
+    fwd0, bwd0 = deformable_sampling.launches, deformable_sampling_backward.launches
+    got = deformable_sampling_shared(*ins)
+    want = deformable_sampling_shared(*ref)
+    got.square().sum().backward()
+    want.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (deformable_sampling.launches - fwd0,
+            deformable_sampling_backward.launches - bwd0) == (1, 1)
+    torch.testing.assert_close(got.detach().cpu(), want.detach(), atol=1e-5, rtol=0)
+    for a, b in zip(ins, ref):
+        scale = float(b.grad.abs().max())
+        torch.testing.assert_close(a.grad.cpu(), b.grad, atol=1e-4 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_sampling_on_card_raises_instead_of_falling_back():
+    """A CUDA tensor the kernels cannot take raises; only ``plain=True``
+    reaches the plain version on the card, and it launches nothing."""
+    _needs_card()
+    value, loc, w, _ = [x.cuda() for x in _msda_case()]
+    before = deformable_sampling.launches
+    with pytest.raises(TypeError):
+        deformable_sampling(value.half(), loc, w)
+    with pytest.raises(ValueError):
+        deformable_sampling(value.transpose(1, 2), loc, w)
+    out = deformable_sampling(value, loc, w, plain=True)
+    assert out.is_cuda and deformable_sampling.launches == before

@@ -282,12 +282,10 @@ def _cfg_with(**changes):
     {"heatmap_mvf__mvf__use_1by1_conv": True},
     {"heatmap_mvf__mvf__joint_query_adaptation": False},
     {"heatmap_mvf__mvf__joint_query_adaptation_multi_view": True},
-    {"heatmap_mvf__mvf__lazy_deform": False},
     {"heatmap_mvf__mvf__transformer__use_normal_cross_attn": True},
     {"heatmap_mvf__use_pred_heatmap_init": False},
     {"pose3d__use_mlp_avgpool": True},
     {"pose3d__use_mlp_heatmap": True},
-    {"pose3d__lazy_deform": False},
     {"pose3d__norm_mlp_pred": True},
     {"camera_model": "ego4view_rw"},
     {"heatmap_mvf__num_views": 2},
