@@ -13,9 +13,13 @@ beside the card's name and power limit:
   2. hold the forward kernel against its plain PyTorch version on the card
      at the flagship shapes, fp32 and bf16, and time kernel, plain version
      and the library yardstick;
-  2b. hold the backward kernel against its plain version at the same
-     shapes, fp32 and bf16, with and without ``d_feat``, and time kernel,
-     plain version and the library yardstick;
+  2b. hold the backward kernels against their plain version at the same
+     shapes, fp32 and bf16, with and without ``d_feat``, with uniform
+     locations and with the model's own (those the flagship's first MVFex
+     and first pose3d call sample at batch 16, :func:`model_locations`),
+     check that ``d_feat`` is bitwise equal in two runs, and time kernels,
+     plain version and the library yardstick, and the bf16 main-path sum
+     of one step;
   3. run the flagship forward (256 px, batch 2, fp32, TF32 off) once through
      the kernels and once through the plain versions, same weights and input;
   4. serve the flagship (256 px, BN folded, bf16, batch 16) through
@@ -59,6 +63,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -79,7 +84,8 @@ SHAPES = {
 }
 # Kernel launches per flagship forward: 4 MVFex refiners run as a loop of
 # 4 modules (one launch each), then 3 lifting layers.
-LAUNCHES_PER_FORWARD = 4 + 3
+LAUNCHES_MVFEX, LAUNCHES_POSE3D = 4, 3
+LAUNCHES_PER_FORWARD = LAUNCHES_MVFEX + LAUNCHES_POSE3D
 SERVE_BATCH, SERVE_WARMUP, SERVE_TIMED = 16, 3, 10
 E2E_BATCH, E2E_HM_TOL, E2E_P3D_TOL = 2, 1e-4, 1e-2
 # Backward kernel vs plain version: max-abs error of each gradient over that
@@ -183,15 +189,72 @@ def time_ms(fn, n: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def sample_inputs(shape, dtype, gen):
+def model_locations(batch: int = SERVE_BATCH, size: int = 256,
+                    dev: str = "cuda") -> dict:
+    """Sampling locations and attention weights of the flagship's own lazy
+    sampling calls: the first MVFex refiner call and the first pose3d
+    lifting call of one fp32 forward at ``batch`` (4 views folded in), with
+    random weights from a seed moved off the init by :func:`perturb_` and a
+    seeded image. Each head's points lie on a ray from its anchor (a 2D
+    heatmap argmax, or a 3D proposal projected into the view), 1 to 16
+    cells out (``deform_offset_bias``), moved by query-dependent offsets.
+    Returns ``{"mvfex": (loc, attn_w), "pose3d": (loc, attn_w)}``, fp32."""
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.models.layers import MSDeformAttnLazy
+
+    model, rig = entry.build((size, size), device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    img = torch.randn(batch, 4, 3, size, size, generator=gen, device=dev)
+    perturb_(model, img, gen)
+    got = {}
+    for name, part in (("mvfex", model.heatmap_estimator),
+                       ("pose3d", model.pose3d_estimator)):
+        for m in part.modules():
+            if isinstance(m, MSDeformAttnLazy):
+                def keep(*args, _locations=m._locations, _name=name):
+                    out = _locations(*args)
+                    got.setdefault(_name, out)
+                    return out
+                m._locations = keep
+    with torch.inference_mode():
+        model(img, rig)
+    return {name: tuple(t.float().clone() for t in out)
+            for name, out in got.items()}
+
+
+def corner_shares(loc, H: int):
+    """Of the 4 bilinear corners of every point on an H x H grid: the share
+    that lies in the grid, and the share of those that repeat a cell that
+    another corner of the same (b, q), any head, already took."""
+    B, Q = loc.shape[:2]
+    x0 = torch.floor(loc[..., 0].float() * H - 0.5).long()
+    y0 = torch.floor(loc[..., 1].float() * H - 0.5).long()
+    bq = torch.arange(B * Q, device=loc.device).view(B, Q, 1, 1)
+    keys = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xc, yc = x0 + dx, y0 + dy
+            ok = (xc >= 0) & (xc < H) & (yc >= 0) & (yc < H)
+            keys.append((bq * H * H + yc * H + xc)[ok])
+    keys = torch.cat(keys)
+    in_grid = keys.numel() / (4 * x0.numel())
+    return in_grid, 1 - torch.unique(keys).numel() / max(keys.numel(), 1)
+
+
+def sample_inputs(shape, dtype, gen, locations=None):
     """Seeded inputs for one lazy_deform_sample call: locations in
-    [-0.3, 1.3] so corners fall outside on every side, softmaxed weights."""
+    [-0.3, 1.3] so corners fall outside on every side and softmaxed
+    weights, or the given ``(loc, attn_w)``."""
     B, Q, nh, P, H, Cin, G, C = (shape[k] for k in
                                  ("B", "Q", "nh", "P", "H", "Cin", "G", "C"))
     dev = "cuda"
     feat = torch.randn(B, H * H, Cin, generator=gen, device=dev).to(dtype)
     loc = torch.rand(B, Q, nh, P, 2, generator=gen, device=dev) * 1.6 - 0.3
     attn_w = torch.randn(B, Q, nh, P, generator=gen, device=dev).softmax(-1)
+    if locations is not None:
+        loc, attn_w = locations
+        if loc.shape != (B, Q, nh, P, 2):
+            raise AssertionError(f"locations {tuple(loc.shape)} do not fit {shape}")
     pos = (torch.randn(G, H * H, C, generator=gen, device=dev).to(dtype)
            if C else None)
     return feat, loc, attn_w, pos
@@ -371,60 +434,90 @@ def grid_sample_backward_ms(feat, loc, pos, shape):
 
 
 def phase_backward_kernels(card):
-    """Backward kernel vs plain version on the card at both flagship shapes."""
+    """Backward kernels vs plain version on the card at both flagship
+    shapes, fp32 and bf16, with uniform locations and with the model's own,
+    with and without d_feat; d_feat must come out bitwise equal from two
+    runs."""
     from egorear_tpu_torch.ops.deform_attn import (
         lazy_deform_sample_backward, lazy_deform_sample_backward_plain)
 
+    model_locs = model_locations()
     gen = torch.Generator(device="cuda").manual_seed(3)
     record = None
     names = ("d_feat", "d_loc", "d_attn_w", "d_pos")
-    for name, shape in SHAPES.items():
-        for dtype in (torch.float32, torch.bfloat16):
-            feat, loc, attn_w, pos = sample_inputs(shape, dtype, gen)
-            g_feat, g_pos, g_one = grad_inputs(feat, loc, pos, gen)
-            block = pos is not None
-            library_ms = grid_sample_backward_ms(feat, loc, pos, shape)
-            f32 = lambda t: t.float() if t is not None else None  # noqa: E731
-            for need_feat in (True, False):
-                args = (feat, loc, attn_w, pos, block, g_feat, g_pos, g_one,
-                        need_feat)
-                got = lazy_deform_sample_backward(*args)
-                torch.cuda.synchronize()
-                # The oracle runs in fp32 on the same (possibly bf16) inputs.
-                want = lazy_deform_sample_backward_plain(
-                    feat.float(), loc, attn_w, f32(pos), block, g_feat.float(),
-                    f32(g_pos), g_one.float(), need_feat)
-                errs, abs_errs = {}, []
-                for n, g, w in zip(names, got, want):
-                    if (g is None) != (w is None):
-                        raise AssertionError(f"backward {n}: kernel and plain "
-                                             f"version disagree on presence")
-                    if w is None:
-                        continue
-                    scale = float(w.abs().max())
-                    err = float((g.float() - w).abs().max())
-                    errs[n] = err / max(scale, 1e-30)
-                    abs_errs.append(err)
-                    if not err <= BWD_TOL[dtype] * scale:
-                        raise AssertionError(
-                            f"lazy_deform_sample backward {name} {dtype} {n}: "
-                            f"max-abs {err:.3e} > {BWD_TOL[dtype]:g} x {scale:.3e}")
-                ms = time_ms(lambda: lazy_deform_sample_backward(*args))
-                plain_ms = time_ms(lambda: lazy_deform_sample_backward_plain(*args))
-                bound_ms, bound_by = lazy_sample_backward_bound_ms(
-                    feat, loc, attn_w, pos, block, need_feat)
-                err_txt = " ".join(f"{n}={e:.2e}" for n, e in errs.items())
-                print(f"[2b] lazy_deform_sample_bwd {name} {str(dtype)[6:]} "
-                      f"B={shape['B']} d_feat={'yes' if need_feat else 'no'}: "
-                      f"max-abs/scale {err_txt} (tol {BWD_TOL[dtype]:g}) "
-                      f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                      f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
-                      f"({bound_by}) | {card}", flush=True)
-                # The record: the refiner call of the bf16 training step.
-                if name == "mvfex" and dtype == torch.bfloat16 and not need_feat:
-                    record = dict(max_abs_err=max(abs_errs), ms=ms,
-                                  plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by, library_ms=library_ms)
+    main_path = {}  # locations -> ms of the bf16 main-path calls of one step
+    cases = [(name, shape, dtype, locs) for name, shape in SHAPES.items()
+             for dtype in (torch.float32, torch.bfloat16)
+             for locs in ("uniform", "model")]
+    for name, shape, dtype, locs in cases:
+        feat, loc, attn_w, pos = sample_inputs(
+            shape, dtype, gen, model_locs[name] if locs == "model" else None)
+        in_grid, repeated = corner_shares(loc, shape["H"])
+        g_feat, g_pos, g_one = grad_inputs(feat, loc, pos, gen)
+        block = pos is not None
+        library_ms = grid_sample_backward_ms(feat, loc, pos, shape)
+        f32 = lambda t: t.float() if t is not None else None  # noqa: E731
+        for need_feat in (True, False):
+            args = (feat, loc, attn_w, pos, block, g_feat, g_pos, g_one,
+                    need_feat)
+            got = lazy_deform_sample_backward(*args)
+            again = lazy_deform_sample_backward(*args)
+            torch.cuda.synchronize()
+            if need_feat and not torch.equal(got[0], again[0]):
+                raise AssertionError(f"lazy_deform_sample backward {name} "
+                                     f"{dtype} {locs}: d_feat differs between "
+                                     f"two runs")
+            del again
+            # The oracle runs in fp32 on the same (possibly bf16) inputs.
+            want = lazy_deform_sample_backward_plain(
+                feat.float(), loc, attn_w, f32(pos), block, g_feat.float(),
+                f32(g_pos), g_one.float(), need_feat)
+            errs, abs_errs = {}, []
+            for n, g, w in zip(names, got, want):
+                if (g is None) != (w is None):
+                    raise AssertionError(f"backward {n}: kernel and plain "
+                                         f"version disagree on presence")
+                if w is None:
+                    continue
+                scale = float(w.abs().max())
+                err = float((g.float() - w).abs().max())
+                errs[n] = err / max(scale, 1e-30)
+                abs_errs.append(err)
+                if not err <= BWD_TOL[dtype] * scale:
+                    raise AssertionError(
+                        f"lazy_deform_sample backward {name} {dtype} {locs} "
+                        f"{n}: max-abs {err:.3e} > {BWD_TOL[dtype]:g} x "
+                        f"{scale:.3e}")
+            del got, want
+            ms = time_ms(lambda: lazy_deform_sample_backward(*args))
+            plain_ms = time_ms(lambda: lazy_deform_sample_backward_plain(*args))
+            bound_ms, bound_by = lazy_sample_backward_bound_ms(
+                feat, loc, attn_w, pos, block, need_feat)
+            err_txt = " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+            print(f"[2b] lazy_deform_sample_bwd {name} {str(dtype)[6:]} {locs} "
+                  f"B={shape['B']} d_feat={'yes' if need_feat else 'no'} "
+                  f"corners in grid {in_grid:.4f}, repeated in a (b, q) "
+                  f"{repeated:.4f}: max-abs/scale {err_txt} (tol {BWD_TOL[dtype]:g}"
+                  f"{'; d_feat bitwise equal in 2 runs' if need_feat else ''}) "
+                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"({bound_by}) | {card}", flush=True)
+            # The main path of a bf16 step: 4 MVFex calls without d_feat,
+            # 3 pose3d calls with it.
+            if dtype == torch.bfloat16 and need_feat == (name == "pose3d"):
+                main_path[locs] = main_path.get(locs, 0.0) + (
+                    LAUNCHES_MVFEX if name == "mvfex" else LAUNCHES_POSE3D) * ms
+            # The record: the refiner call of the bf16 training step.
+            if (name == "mvfex" and dtype == torch.bfloat16 and not need_feat
+                    and locs == "uniform"):
+                record = dict(max_abs_err=max(abs_errs), ms=ms,
+                              plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=library_ms)
+    print(f"[2b] lazy_deform_sample_bwd main path of a bf16 step "
+          f"({LAUNCHES_MVFEX} x MVFex without d_feat + {LAUNCHES_POSE3D} x "
+          f"pose3d with it, kernel times above): "
+          + ", ".join(f"{locs} {ms:.4f} ms" for locs, ms in main_path.items())
+          + f" | {card}", flush=True)
     return record
 
 
@@ -754,12 +847,23 @@ def phase_serve(card, profile: str | None, lazy: bool = True):
     return launches
 
 
+# The __global__ functions of each csrc source, as the profiler names them:
+# a symbol that starts at a word boundary and matches the pattern (the
+# backward sources may launch several kernels, all named <source>_*kernel).
+KERNEL_SYMBOLS = {
+    "lazy_deform_sample": r"lazy_deform_sample_kernel\b",
+    "lazy_deform_sample_bwd": r"lazy_deform_sample_bwd_\w*kernel\b",
+    "deform_sample": r"deform_sample_kernel\b",
+    "deform_sample_bwd": r"deform_sample_bwd_\w*kernel\b",
+}
+
+
 def kernel_time(events, name: str) -> float:
-    """Device time (us) of kernel ``name`` (a csrc source name) in the
-    profiler's events; ``deform_sample`` does not count the lazy kernel."""
-    key = f"{name}_kernel"
-    return sum(e.self_device_time_total for e in events
-               if key in e.key and (name.startswith("lazy_") or f"lazy_{key}" not in e.key))
+    """Device time (us) of the __global__ functions of csrc source ``name``
+    in the profiler's events: ``deform_sample`` does not count the lazy
+    kernels, nor a forward key its backward's."""
+    pattern = re.compile(r"(?<![A-Za-z0-9_])" + KERNEL_SYMBOLS[name])
+    return sum(e.self_device_time_total for e in events if pattern.search(e.key))
 
 
 def profile_serving(model, rig, img, card, path: str, lazy: bool = True,
@@ -1016,8 +1120,8 @@ def profile_train(trainer, batch, card, path: str, lazy: bool = True,
     fwd, bwd = (kernel_time(events, name) / n / 1e3 for name in names)
     print(f"{tag} profile over {n} train steps: host {host:.3f} ms/step under "
           f"the profiler, device busy {busy:.3f} ms/step (idle "
-          f"{100 * (1 - busy / host):.1f} %); {names[0]}_kernel "
-          f"{fwd:.4f} ms/step, {names[1]}_kernel {bwd:.4f} "
+          f"{100 * (1 - busy / host):.1f} %); {names[0]}.cu "
+          f"{fwd:.4f} ms/step, {names[1]}.cu (all its kernels) {bwd:.4f} "
           f"ms/step ({100 * (fwd + bwd) / busy:.2f} % of device time) | {card}",
           flush=True)
 

@@ -51,6 +51,8 @@ Grads = Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 48 * 1024  # static shared memory a block may take without opt-in
+_SMEM_OPTIN_LIMIT = 232448  # an H100 block's dynamic shared memory after opt-in
+_BWD_TILE_BYTES = 64 * 1024  # the lazy backward's d_feat band tile, at most
 
 
 def _grid_side(HW: int) -> int:
@@ -241,16 +243,33 @@ def _check_cuda_inputs(feat, loc, attn_w, pos):
                          f"shared memory")
 
 
-def _bwd_smem_bytes(nh: int, P: int, Cin: int, C: int) -> int:
-    """Shared memory of the backward kernel: the fp32 upstream-gradient rows
-    of every head, 4 corner records of 16 bytes per point, one weight per
-    point (see ``csrc/lazy_deform_sample_bwd.cu``)."""
-    return 4 * nh * (Cin + C) + nh * P * (4 * 16 + 4)
+def _bwd_smem_bytes(HW: int, Q: int, nh: int, P: int, Cin: int, C: int,
+                    need_feat: bool, elem: int) -> Tuple[int, int]:
+    """Shared memory of the two backward kernels, as
+    ``csrc/lazy_deform_sample_bwd.cu`` sizes it (``adjoint_smem``,
+    ``dfeat_smem``), for ``elem``-byte features; the second is 0 when
+    ``d_feat`` is not wanted.
+
+    Adjoint kernel: the fp32 upstream-gradient rows of every head, 4 corner
+    records of 16 bytes and one weight per point. ``d_feat`` kernel: an
+    fp32 tile of a band of cells (at most 64 KB, one cell at least), a list
+    entry of 8 bytes for each corner of the batch element, its ``g_feat``
+    rows as stored, and the counting sort's offsets (8 bands by 16 warps, 9
+    band starts).
+    """
+    NP = nh * P
+    adjoint = 4 * nh * (Cin + C) + NP * (4 * 16 + 4)
+    if not need_feat:
+        return adjoint, 0
+    band = min(HW, max(1, _BWD_TILE_BYTES // (4 * Cin)))
+    return adjoint, (4 * band * Cin + 32 * Q * NP + elem * Q * nh * Cin
+                     + 4 * (8 * 16 + 8 + 1))
 
 
-def _check_backward_inputs(feat, loc, attn_w, pos, g_feat, g_pos, g_one):
+def _check_backward_inputs(feat, loc, attn_w, pos, g_feat, g_pos, g_one,
+                           need_feat: bool = True):
     _check_cuda_inputs(feat, loc, attn_w, pos)
-    B, _, Cin = feat.shape
+    B, HW, Cin = feat.shape
     Q, nh, P = attn_w.shape[1:]
     C = pos.shape[-1] if pos is not None else 0
     want = {"g_feat": (g_feat, (B, Q, nh, Cin)), "g_one": (g_one, (B, Q, nh, 1))}
@@ -270,9 +289,16 @@ def _check_backward_inputs(feat, loc, attn_w, pos, g_feat, g_pos, g_one):
         if name != "g_one" and (not g.is_contiguous() or g.data_ptr() % 16):
             raise ValueError(f"the backward kernel needs a contiguous {name} "
                              f"with a 16-byte aligned base")
-    if _bwd_smem_bytes(nh, P, Cin, C) > _SMEM_LIMIT:
-        raise ValueError(f"nh={nh}, P={P}, {Cin}+{C} channels exceed the "
-                         f"backward kernel's shared memory")
+    adjoint, dfeat = _bwd_smem_bytes(HW, Q, nh, P, Cin, C, need_feat,
+                                     feat.element_size())
+    if need_feat and (HW > 1 << 16 or Q * nh >= 1 << 15):
+        raise ValueError(f"the d_feat kernel packs a cell below 2^16 and a "
+                         f"query row below 2^15 into one key; got HW={HW}, "
+                         f"Q*nh={Q * nh}")
+    if max(adjoint, dfeat) > _SMEM_OPTIN_LIMIT:
+        raise ValueError(f"Q={Q}, nh={nh}, P={P}, {Cin}+{C} channels need "
+                         f"{adjoint} and {dfeat} bytes of shared memory; the "
+                         f"backward kernels take at most {_SMEM_OPTIN_LIMIT}")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -328,7 +354,8 @@ def _backward_kernel(feat, loc, attn_w, pos, pos_block, g_feat, g_pos, g_one,
     attn_w = attn_w.to(torch.float32).contiguous()
     g_feat, g_pos = _aligned16(g_feat), _aligned16(g_pos)
     g_one = g_one.contiguous()
-    _check_backward_inputs(feat, loc, attn_w, pos, g_feat, g_pos, g_one)
+    _check_backward_inputs(feat, loc, attn_w, pos, g_feat, g_pos, g_one,
+                           need_feat)
     B, HW, Cin = feat.shape
     Q, nh, P = attn_w.shape[1:]
     side = _grid_side(HW)
@@ -336,8 +363,9 @@ def _backward_kernel(feat, loc, attn_w, pos, pos_block, g_feat, g_pos, g_one,
     G, C = (pos3.shape[0], pos3.shape[2]) if pos3 is not None else (1, 0)
     dev, f32 = feat.device, torch.float32
 
-    # fp32 scratch for the atomic scatters, zeroed; cast at the end.
-    d_feat = torch.zeros(B, HW, Cin, device=dev, dtype=f32) if need_feat else None
+    # d_feat is written in full by the kernel that owns each band of cells;
+    # d_pos is an fp32 table the atomics add into, zeroed, cast at the end.
+    d_feat = torch.empty_like(feat) if need_feat else None
     d_pos = (torch.zeros(G, HW, C, device=dev, dtype=f32)
              if pos3 is not None and need_pos else None)
     d_loc = torch.empty(B, Q, nh, P, 2, device=dev, dtype=f32)
@@ -357,8 +385,6 @@ def _backward_kernel(feat, loc, attn_w, pos, pos_block, g_feat, g_pos, g_one,
         raise RuntimeError(f"lazy_deform_sample backward kernel launch failed: "
                            f"CUDA error {rc}")
     lazy_deform_sample_backward.launches += 1
-    if d_feat is not None:
-        d_feat = d_feat.to(feat.dtype)
     if d_pos is not None:
         d_pos = d_pos.reshape(pos.shape).to(pos.dtype)
     return d_feat, d_loc, d_w, d_pos
@@ -398,7 +424,7 @@ class LazyDeformSample(torch.autograd.Function):
     fp32 (the caller casts them inside the graph, so autograd casts their
     gradients back). Gradients are computed only for the inputs that need
     them: the MVFex refiners sample detached features, and their backward
-    then neither zeroes nor scatters a ``d_feat`` buffer.
+    then computes no ``d_feat``.
     """
 
     @staticmethod

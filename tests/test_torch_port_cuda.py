@@ -18,6 +18,8 @@ import torch
 
 from egorear_tpu_torch.ops.deform_attn import (
     _aligned16,
+    _backward_kernel,
+    _bwd_smem_bytes,
     _check_backward_inputs,
     _check_cuda_inputs,
     _check_sampling_backward_inputs,
@@ -35,15 +37,30 @@ from egorear_tpu_torch.ops.deform_attn import (
     lazy_deform_sample_backward_plain,
     lazy_deform_sample_plain,
 )
+from egorear_tpu_torch.models.layers import deform_offset_bias
 
 
-def _case(pos_mode: str, seed: int = 2, Cin: int = 128, C: int = 64):
-    """Locations in [-0.3, 1.3] (corners off every side), nh*Q = 60 rows,
-    a G=2 pos table in either layout; channels are multiples of 4."""
+def _ring_loc(rng, B, Q, nh, P, H):
+    """Locations shaped as the model's: each head's points on its ray from
+    the query's anchor, 1 to P cells out (``deform_offset_bias``, the
+    sampling offsets' init), moved by N(0, 1 cell); neighbouring points of
+    a ray share corners, and the rays of a short grid run off its border."""
+    anchors = rng.uniform(0.2, 0.8, size=(B, Q, 1, 1, 2))
+    rays = deform_offset_bias(nh, P).numpy().reshape(nh, P, 2)
+    loc = anchors + (rays + rng.normal(size=(B, Q, nh, P, 2))) / H
+    return loc.astype(np.float32)
+
+
+def _case(pos_mode: str, seed: int = 2, Cin: int = 128, C: int = 64,
+          H: int = 16, rings: bool = False):
+    """Locations in [-0.3, 1.3] (corners off every side) or on the model's
+    rays (:func:`_ring_loc`), nh*Q = 60 rows, a G=2 pos table in either
+    layout; channels are multiples of 4."""
     rng = np.random.default_rng(seed)
-    B, H, Q, nh, P, G = 4, 16, 15, 4, 16, 2
+    B, Q, nh, P, G = 4, 15, 4, 16, 2
     feat = rng.normal(size=(B, H * H, Cin)).astype(np.float32)
-    loc = rng.uniform(-0.3, 1.3, size=(B, Q, nh, P, 2)).astype(np.float32)
+    loc = (_ring_loc(rng, B, Q, nh, P, H) if rings else
+           rng.uniform(-0.3, 1.3, size=(B, Q, nh, P, 2)).astype(np.float32))
     w = rng.uniform(size=(B, Q, nh, P)).astype(np.float32)
     w /= w.sum(axis=-1, keepdims=True)
     pos = None if pos_mode == "none" else rng.normal(
@@ -197,17 +214,77 @@ def test_backward_wrapper_uses_plain_on_cpu():
         assert torch.equal(a, b)
 
 
+def test_backward_smem_fits_the_flagship_calls():
+    """Both flagship calls at batch 16 fit the backward kernels' shared
+    memory: the MVFex call without d_feat (the adjoint kernel alone, within
+    the 48 KB a block takes without opt-in) and the pose3d call with it (a
+    128-cell band tile and the 64 g_feat rows; two blocks fit an SM's
+    228 KB, 1 KB of it reserved per block)."""
+    adjoint, dfeat = _bwd_smem_bytes(4096, 15, 4, 16, 128, 256, False, 2)
+    assert adjoint <= 48 * 1024 and dfeat == 0
+    adjoint, dfeat = _bwd_smem_bytes(4096, 16, 4, 16, 128, 0, True, 2)
+    assert adjoint <= 48 * 1024 and 2 * (dfeat + 1024) <= 228 * 1024
+    adjoint, dfeat = _bwd_smem_bytes(4096, 15, 4, 16, 128, 256, True, 4)
+    assert max(adjoint, dfeat) <= 227 * 1024
+    feat = torch.zeros(4, 4096, 128)
+    loc, w = torch.zeros(4, 16, 4, 16, 2), torch.zeros(4, 16, 4, 16)
+    g = torch.zeros(4, 16, 4, 128), torch.zeros(4, 16, 4, 1)
+    _check_backward_inputs(feat, loc, w, None, g[0], None, g[1], need_feat=True)
+    pos = torch.zeros(4, 4096, 256)
+    loc, w = loc[:, :15].contiguous(), w[:, :15].contiguous()
+    _check_backward_inputs(feat, loc, w, pos, g[0][:, :15].contiguous(),
+                           torch.zeros(4, 15, 4, 256), g[1][:, :15].contiguous(),
+                           need_feat=False)
+
+
+@pytest.mark.parametrize("case", ["wide_feat", "many_rows", "wide_heads"])
+def test_backward_smem_check_refuses_before_any_launch(case):
+    """What exceeds a block's shared memory raises in the wrapper, on any
+    device, before a kernel is built or launched: g_feat rows too wide for
+    the d_feat kernel (accepted when d_feat is not wanted), too many points
+    for its list, upstream-gradient rows of all heads too wide for the
+    adjoint kernel."""
+    B, HW, Q, nh, P, Cin = 2, 256, 15, 4, 16, 1024
+    if case == "many_rows":
+        Q, Cin = 240, 64
+    elif case == "wide_heads":
+        nh, Cin = 8, 8192
+    feat = torch.zeros(B, HW, Cin)
+    loc, w = torch.zeros(B, Q, nh, P, 2), torch.zeros(B, Q, nh, P)
+    g_feat, g_one = torch.zeros(B, Q, nh, Cin), torch.zeros(B, Q, nh, 1)
+    before = lazy_deform_sample_backward.launches
+    with pytest.raises(ValueError):
+        _backward_kernel(feat, loc, w, None, False, g_feat, None, g_one,
+                         True, True)
+    assert lazy_deform_sample_backward.launches == before
+    if case != "wide_heads":  # without d_feat only the adjoint kernel runs
+        _check_backward_inputs(feat, loc, w, None, g_feat, None, g_one,
+                               need_feat=False)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("pos_mode", ["none", "interleaved", "block"])
+@pytest.mark.parametrize("pos_mode", ["none", "interleaved", "block",
+                                      "block_c52_h20", "rings"])
 def test_backward_kernel_matches_plain_on_card(pos_mode):
-    """The backward kernel vs its plain version, fp32 (1e-4 of each
+    """The backward kernels vs their plain version, fp32 (1e-4 of each
     gradient's largest value: sums in another order, atomics in a varying
     order) and bf16 (the plain version in fp32 on the same bf16 inputs, 1e-2
     of scale: one bf16 rounding of d_feat and d_pos), with and without
-    d_feat. ``chip_smoke.py`` does the same at the flagship shapes."""
+    d_feat. ``block_c52_h20``: 52 + 36 channels (neither a multiple of 32
+    lanes nor of a float4 per lane), a 20x20 grid whose last d_feat band is
+    partial, and 960 points per batch element (not a multiple of the
+    d_feat kernel's 512 threads); ``rings``: the points on the model's rays
+    (:func:`_ring_loc`), so corner cells repeat within a block.
+    ``chip_smoke.py`` does the same at the flagship shapes, with the
+    locations of the flagship's own forward."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    feat, loc, w, pos, block = _case(pos_mode)
+    if pos_mode == "block_c52_h20":
+        feat, loc, w, pos, block = _case("block", Cin=52, C=36, H=20)
+    elif pos_mode == "rings":
+        feat, loc, w, pos, block = _case("block", rings=True)
+    else:
+        feat, loc, w, pos, block = _case(pos_mode)
     feat_t, loc_t, w_t, pos_t = _tensors(feat, loc, w, pos)
     grads = _grads(feat_t, pos_t)
     for dtype in (torch.float32, torch.bfloat16):
@@ -232,6 +309,54 @@ def test_backward_kernel_matches_plain_on_card(pos_mode):
                 scale = float(ww.abs().max())
                 torch.testing.assert_close(g.float().cpu(), ww, atol=rtol * scale,
                                            rtol=0)
+
+
+def test_profile_counts_every_kernel_of_a_source_once():
+    """``chip_smoke.kernel_time`` sums each csrc source's __global__
+    functions as the profiler names them: both kernels of the lazy backward
+    under its key and neither under the lazy forward's; the per-head
+    forward's key takes neither lazy kernel nor its own backward."""
+    import chip_smoke
+
+    class Event:
+        def __init__(self, key, us):
+            self.key, self.self_device_time_total = key, us
+
+    ns = "void (anonymous namespace)::"
+    events = [Event(f"{ns}lazy_deform_sample_kernel<float>(float const*)", 1),
+              Event(f"{ns}lazy_deform_sample_bwd_adjoint_kernel<__nv_bfloat16>()", 10),
+              Event(f"{ns}lazy_deform_sample_bwd_dfeat_kernel<__nv_bfloat16>()", 100),
+              Event(f"{ns}deform_sample_kernel<float>(float const*)", 1000),
+              Event(f"{ns}deform_sample_bwd_kernel<float>(float const*)", 10000),
+              Event("void at::native::elementwise_kernel<128, 4>()", 1e5)]
+    assert {n: chip_smoke.kernel_time(events, n) for n in chip_smoke.KERNELS} == {
+        "lazy_deform_sample": 1, "lazy_deform_sample_bwd": 110,
+        "deform_sample": 1000, "deform_sample_bwd": 10000}
+
+
+@pytest.mark.cuda
+def test_backward_d_feat_is_bitwise_reproducible_on_card():
+    """d_feat (and d_loc, d_attn_w) come out bitwise equal from two runs on
+    the same inputs, with the points on the model's rays, where many
+    corners share a cell: each cell of d_feat is summed by one thread in a
+    fixed order.
+    Each call of the wrapper counts one launch."""
+    _needs_card()
+    feat, loc, w, pos, block = _case("block", rings=True)
+    feat_t, loc_t, w_t, pos_t = _tensors(feat, loc, w, pos)
+    grads = _grads(feat_t, pos_t)
+    for dtype in (torch.float32, torch.bfloat16):
+        c = lambda x: None if x is None else x.cuda().to(dtype)  # noqa: E731
+        args = (c(feat_t), loc_t.cuda(), w_t.cuda(), c(pos_t), block,
+                *map(c, grads))
+        before = lazy_deform_sample_backward.launches
+        first = lazy_deform_sample_backward(*args)
+        second = lazy_deform_sample_backward(*args)
+        torch.cuda.synchronize()
+        assert lazy_deform_sample_backward.launches == before + 2
+        for a, b in zip(first[:3], second[:3]):
+            assert torch.equal(a, b)
+        assert first[0].dtype == dtype and first[0].shape == feat_t.shape
 
 
 # -- per-head deformable sampling (the reference order) ----------------------------
