@@ -11,12 +11,13 @@ beside the card's name and power limit:
   1. build the hand-written kernels from ``egorear_tpu_torch/csrc/`` (nvcc,
      sm_90a) and report the build time;
   2. hold the forward kernel against its plain PyTorch version on the card
-     at the flagship shapes, fp32 and bf16, and time kernel, plain version
-     and the library yardstick;
+     at the flagship shapes, fp32 and bf16, with uniform locations and with
+     the model's own (those the flagship's first MVFex and first pose3d
+     call sample at batch 16, :func:`model_locations`), check that each
+     bf16 call gives bitwise equal outputs in two runs, and time kernel,
+     plain version and the library yardstick;
   2b. hold the backward kernels against their plain version at the same
-     shapes, fp32 and bf16, with and without ``d_feat``, with uniform
-     locations and with the model's own (those the flagship's first MVFex
-     and first pose3d call sample at batch 16, :func:`model_locations`),
+     shapes and locations, fp32 and bf16, with and without ``d_feat``,
      check that ``d_feat`` is bitwise equal in two runs, and time kernels,
      plain version and the library yardstick, and the bf16 main-path sum
      of one step;
@@ -343,60 +344,76 @@ def max_err(got, want):
     return max(errs), scale
 
 
-def phase_kernels(card):
-    """Kernel vs plain version on the card at both flagship shapes."""
+def phase_kernels(card, model_locs):
+    """Kernel vs plain version on the card at both flagship shapes, fp32 and
+    bf16, with uniform locations and with the model's own; each bf16 call
+    must give bitwise equal outputs in two runs."""
     from egorear_tpu_torch.ops.deform_attn import (
         lazy_deform_sample, lazy_deform_sample_plain)
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     record = None
-    for name, shape in SHAPES.items():
-        for dtype in (torch.float32, torch.bfloat16):
-            feat, loc, attn_w, pos = sample_inputs(shape, dtype, gen)
-            block = pos is not None
-            got = lazy_deform_sample(feat, loc, attn_w, pos, block)
+    cases = [(name, shape, dtype, locs) for name, shape in SHAPES.items()
+             for dtype in (torch.float32, torch.bfloat16)
+             for locs in ("uniform", "model")]
+    for name, shape, dtype, locs in cases:
+        feat, loc, attn_w, pos = sample_inputs(
+            shape, dtype, gen, model_locs[name] if locs == "model" else None)
+        in_grid, repeated = corner_shares(loc, shape["H"])
+        block = pos is not None
+        got = lazy_deform_sample(feat, loc, attn_w, pos, block)
+        torch.cuda.synchronize()
+        # The oracle runs in fp32 on the same (possibly bf16) inputs.
+        want = lazy_deform_sample_plain(
+            feat.float(), loc, attn_w,
+            pos.float() if pos is not None else None, block)
+        if (got[1] is None) != (want[1] is None):
+            raise AssertionError("kernel and plain version disagree on s_pos")
+        err, scale = max_err(got, want)
+        tol = 1e-4 if dtype == torch.float32 else 1e-2 * scale
+        if not err <= tol:
+            raise AssertionError(
+                f"lazy_deform_sample {name} {dtype} {locs}: max-abs {err:.3e} "
+                f"> {tol:.3e}")
+        bitwise = ""
+        if dtype == torch.bfloat16:
+            again = lazy_deform_sample(feat, loc, attn_w, pos, block)
             torch.cuda.synchronize()
-            # The oracle runs in fp32 on the same (possibly bf16) inputs.
-            want = lazy_deform_sample_plain(
-                feat.float(), loc, attn_w,
-                pos.float() if pos is not None else None, block)
-            if (got[1] is None) != (want[1] is None):
-                raise AssertionError("kernel and plain version disagree on s_pos")
-            err, scale = max_err(got, want)
-            tol = 1e-4 if dtype == torch.float32 else 1e-2 * scale
-            if not err <= tol:
-                raise AssertionError(
-                    f"lazy_deform_sample {name} {dtype}: max-abs {err:.3e} "
-                    f"> {tol:.3e}")
-            ms = time_ms(lambda: lazy_deform_sample(feat, loc, attn_w, pos, block))
-            plain_ms = time_ms(lambda: lazy_deform_sample_plain(
-                feat, loc, attn_w, pos, block))
-            # Library yardstick: one grid_sample over the concatenated
-            # [feat | pos | ones] buffer (no weighting, no sum over points).
-            B, HW, Cin = feat.shape
-            side = int(HW ** 0.5)
-            parts = [feat]
-            if pos is not None:
-                parts.append(pos.repeat_interleave(B // pos.shape[0], dim=0))
-            parts.append(feat.new_ones(B, HW, 1))
-            buf = torch.cat(parts, -1).reshape(B, side, side, -1).permute(
-                0, 3, 1, 2).contiguous()
-            grid = (2 * loc - 1).reshape(B, -1, shape["P"], 2).to(dtype)
-            library_ms = time_ms(lambda: F.grid_sample(
-                buf, grid, mode="bilinear", padding_mode="zeros",
-                align_corners=False))
-            bound_ms, bound_by = lazy_sample_bound_ms(feat, loc, attn_w, pos, block)
-            print(f"[2] lazy_deform_sample {name} {str(dtype)[6:]} "
-                  f"B={shape['B']} Q={shape['Q']} nh={shape['nh']} "
-                  f"P={shape['P']} {side}x{side} Cin={Cin} C={shape['C']}: "
-                  f"max_abs_err={err:.3e} (tol {tol:.1e}) ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-                  f"bound_ms={bound_ms:.4f} ({bound_by}) | {card}", flush=True)
-            if name == "mvfex" and dtype == torch.bfloat16:
-                record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by,
-                              library_ms=library_ms)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None):
+                raise AssertionError(f"lazy_deform_sample {name} {dtype} "
+                                     f"{locs}: outputs differ between two runs")
+            bitwise = "; bitwise equal in 2 runs"
+        ms = time_ms(lambda: lazy_deform_sample(feat, loc, attn_w, pos, block))
+        plain_ms = time_ms(lambda: lazy_deform_sample_plain(
+            feat, loc, attn_w, pos, block))
+        # Library yardstick: one grid_sample over the concatenated
+        # [feat | pos | ones] buffer (no weighting, no sum over points).
+        B, HW, Cin = feat.shape
+        side = int(HW ** 0.5)
+        parts = [feat]
+        if pos is not None:
+            parts.append(pos.repeat_interleave(B // pos.shape[0], dim=0))
+        parts.append(feat.new_ones(B, HW, 1))
+        buf = torch.cat(parts, -1).reshape(B, side, side, -1).permute(
+            0, 3, 1, 2).contiguous()
+        grid = (2 * loc - 1).reshape(B, -1, shape["P"], 2).to(dtype)
+        library_ms = time_ms(lambda: F.grid_sample(
+            buf, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=False))
+        bound_ms, bound_by = lazy_sample_bound_ms(feat, loc, attn_w, pos, block)
+        print(f"[2] lazy_deform_sample {name} {str(dtype)[6:]} {locs} "
+              f"B={shape['B']} Q={shape['Q']} nh={shape['nh']} "
+              f"P={shape['P']} {side}x{side} Cin={Cin} C={shape['C']}: "
+              f"corners in grid {in_grid:.4f}, repeated in a (b, q) "
+              f"{repeated:.4f}: max_abs_err={err:.3e} (tol {tol:.1e}{bitwise}) "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) | {card}", flush=True)
+        if name == "mvfex" and dtype == torch.bfloat16 and locs == "uniform":
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms)
     return record
 
 
@@ -433,7 +450,7 @@ def grid_sample_backward_ms(feat, loc, pos, shape):
                                                retain_graph=True))
 
 
-def phase_backward_kernels(card):
+def phase_backward_kernels(card, model_locs):
     """Backward kernels vs plain version on the card at both flagship
     shapes, fp32 and bf16, with uniform locations and with the model's own,
     with and without d_feat; d_feat must come out bitwise equal from two
@@ -441,7 +458,6 @@ def phase_backward_kernels(card):
     from egorear_tpu_torch.ops.deform_attn import (
         lazy_deform_sample_backward, lazy_deform_sample_backward_plain)
 
-    model_locs = model_locations()
     gen = torch.Generator(device="cuda").manual_seed(3)
     record = None
     names = ("d_feat", "d_loc", "d_attn_w", "d_pos")
@@ -1161,10 +1177,13 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    records = {"lazy_deform_sample": timed("2", phase_kernels, card),
-               "lazy_deform_sample_bwd": timed("2b", phase_backward_kernels, card),
-               "deform_sample": timed("2c", phase_msda_kernels, card),
-               "deform_sample_bwd": timed("2d", phase_msda_backward_kernels, card)}
+    model_locs = timed("locs", model_locations)
+    records = {
+        "lazy_deform_sample": timed("2", phase_kernels, card, model_locs),
+        "lazy_deform_sample_bwd": timed("2b", phase_backward_kernels, card,
+                                        model_locs),
+        "deform_sample": timed("2c", phase_msda_kernels, card),
+        "deform_sample_bwd": timed("2d", phase_msda_backward_kernels, card)}
     serve, train = {}, {}
     for lazy in (True, False):
         b = "" if lazy else "b"

@@ -53,6 +53,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 48 * 1024  # static shared memory a block may take without opt-in
 _SMEM_OPTIN_LIMIT = 232448  # an H100 block's dynamic shared memory after opt-in
 _BWD_TILE_BYTES = 64 * 1024  # the lazy backward's d_feat band tile, at most
+# (b, q, head) rows a block of the lazy forward kernel serves, one warp each:
+# 960 blocks of 128 threads for the MVFex call at batch 16, all resident at once.
+_FWD_ROWS_PER_BLOCK = 4
 
 
 def _grid_side(HW: int) -> int:
@@ -237,10 +240,19 @@ def _check_cuda_inputs(feat, loc, attn_w, pos):
     if pos is not None and pos.shape[-2] != feat.shape[1]:
         raise ValueError(f"pos {tuple(pos.shape)} is not on feat's grid of "
                          f"{feat.shape[1]} cells")
-    nh, P = attn_w.shape[2:]
-    if nh * P * 4 * 8 > _SMEM_LIMIT:
-        raise ValueError(f"nh * P = {nh * P} corners exceed the kernel's "
-                         f"shared memory")
+    P = attn_w.shape[3]
+    if _fwd_smem_bytes(P) > _SMEM_OPTIN_LIMIT:
+        raise ValueError(f"P = {P} points need {_fwd_smem_bytes(P)} bytes of "
+                         f"the forward kernel's shared memory; a block takes "
+                         f"at most {_SMEM_OPTIN_LIMIT}")
+
+
+def _fwd_smem_bytes(P: int) -> int:
+    """Shared memory of a forward block of ``csrc/lazy_deform_sample.cu``,
+    which the wrapper passes to the kernel: for each of its
+    ``_FWD_ROWS_PER_BLOCK`` warps (one (b, q, head) row each) a list of up
+    to 4 * P in-grid corners, 8 bytes a record (cell index, fp32 weight)."""
+    return _FWD_ROWS_PER_BLOCK * 4 * P * 8
 
 
 def _bwd_smem_bytes(HW: int, Q: int, nh: int, P: int, Cin: int, C: int,
@@ -307,8 +319,9 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """``t`` contiguous with a 16-byte aligned base, copied if need be: an
-    upstream gradient may be a view into a larger buffer, and the backward
-    kernel reads its rows 16 bytes at a time."""
+    upstream gradient or ``loc`` may be a view into a larger buffer, and the
+    kernels read gradient rows 16 bytes and ``loc`` points 8 bytes at a
+    time."""
     if t is None:
         return None
     t = t.contiguous()
@@ -321,7 +334,7 @@ def _forward_kernel(feat, loc, attn_w, pos, pos_block: bool) -> Samples:
     B, HW, Cin = feat.shape
     Q, nh, P = attn_w.shape[1:]
     side = _grid_side(HW)
-    loc = loc.to(torch.float32).contiguous()
+    loc = _aligned16(loc.to(torch.float32))  # read as float2
     attn_w = attn_w.to(torch.float32).contiguous()
     pos3 = _pos_groups(pos, B) if pos is not None else None
     G, C = (pos3.shape[0], pos3.shape[2]) if pos3 is not None else (1, 0)
@@ -333,13 +346,13 @@ def _forward_kernel(feat, loc, attn_w, pos, pos_block: bool) -> Samples:
 
     fn = kernels.load("lazy_deform_sample").egorear_lazy_deform_sample
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
         rc = fn(_ptr(feat), _ptr(pos3), _ptr(loc), _ptr(attn_w), _ptr(s_feat),
                 _ptr(s_pos), _ptr(s_one), B, side, side, Cin, C, G,
                 int(bool(pos_block)), Q, nh, P, _DTYPE_CODES[feat.dtype],
-                stream)
+                _FWD_ROWS_PER_BLOCK, _fwd_smem_bytes(P), stream)
     if rc != 0:
         raise RuntimeError(f"lazy_deform_sample kernel launch failed: CUDA "
                            f"error {rc}")

@@ -24,6 +24,8 @@ from egorear_tpu_torch.ops.deform_attn import (
     _check_cuda_inputs,
     _check_sampling_backward_inputs,
     _check_sampling_inputs,
+    _forward_kernel,
+    _fwd_smem_bytes,
     _sampling_backward_kernel,
     _sampling_kernel,
     _vector_width,
@@ -52,12 +54,12 @@ def _ring_loc(rng, B, Q, nh, P, H):
 
 
 def _case(pos_mode: str, seed: int = 2, Cin: int = 128, C: int = 64,
-          H: int = 16, rings: bool = False):
+          H: int = 16, rings: bool = False, B: int = 4, Q: int = 15,
+          nh: int = 4, P: int = 16, G: int = 2):
     """Locations in [-0.3, 1.3] (corners off every side) or on the model's
-    rays (:func:`_ring_loc`), nh*Q = 60 rows, a G=2 pos table in either
-    layout; channels are multiples of 4."""
+    rays (:func:`_ring_loc`), by default nh*Q = 60 rows and a G=2 pos table in
+    either layout; channels are multiples of 4."""
     rng = np.random.default_rng(seed)
-    B, Q, nh, P, G = 4, 15, 4, 16, 2
     feat = rng.normal(size=(B, H * H, Cin)).astype(np.float32)
     loc = (_ring_loc(rng, B, Q, nh, P, H) if rings else
            rng.uniform(-0.3, 1.3, size=(B, Q, nh, P, 2)).astype(np.float32))
@@ -107,23 +109,37 @@ def test_check_refuses_what_the_kernel_cannot_take(fault):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pos_mode", ["none", "interleaved", "block"])
+@pytest.mark.parametrize("pos_mode", ["none", "interleaved", "block",
+                                      "c52_c36_h20", "rings", "out_of_grid",
+                                      "p512", "offset_loc"])
 def test_kernel_matches_plain_on_card(pos_mode):
     """The CUDA kernel vs its plain version, fp32 (atol 1e-4: sums in
     another order) and bf16 (the plain version in fp32 on the same bf16
     inputs, atol 1e-2 of the largest output: one bf16 rounding of each
-    output). ``chip_smoke.py`` does the same at the flagship shapes."""
+    output); one launch per call. The cases after ``block`` are
+    :func:`_forward_case`'s; with every corner out of the grid the outputs
+    are exactly zero. ``chip_smoke.py`` does the same at the flagship
+    shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    feat, loc, w, pos, block = _case(pos_mode)
+    if pos_mode in ("none", "interleaved", "block"):
+        feat, loc, w, pos, block = _case(pos_mode)
+    else:
+        feat, loc, w, pos, block = _forward_case(pos_mode)
     feat_t, loc_t, w_t, pos_t = _tensors(feat, loc, w, pos)
     for dtype in (torch.float32, torch.bfloat16):
         c = lambda x: None if x is None else x.cuda().to(dtype)  # noqa: E731
         want = lazy_deform_sample_plain(
             c(feat_t).float().cpu(), loc_t, w_t,
             None if pos_t is None else c(pos_t).float().cpu(), block)
+        loc_c = loc_t.cuda()
+        if pos_mode == "offset_loc":  # a view 4 bytes past an 8-byte boundary
+            buf = torch.zeros(loc_c.numel() + 1, device="cuda")
+            buf[1:] = loc_c.flatten()
+            loc_c = buf[1:].view(loc_c.shape)
+            assert loc_c.is_contiguous() and loc_c.data_ptr() % 8 == 4
         before = lazy_deform_sample.launches
-        got = lazy_deform_sample(c(feat_t), loc_t.cuda(), w_t.cuda(), c(pos_t), block)
+        got = lazy_deform_sample(c(feat_t), loc_c, w_t.cuda(), c(pos_t), block)
         torch.cuda.synchronize()
         assert lazy_deform_sample.launches == before + 1
         scale = max(float(x.abs().max()) for x in want if x is not None)
@@ -132,8 +148,87 @@ def test_kernel_matches_plain_on_card(pos_mode):
             if ww is None:
                 assert g is None
                 continue
-            assert g.dtype == dtype and g.is_cuda
+            assert g.dtype == dtype and g.is_cuda and g.shape == ww.shape
+            if pos_mode == "out_of_grid":
+                assert not bool(g.any()) and not bool(ww.any())
             torch.testing.assert_close(g.float().cpu(), ww, atol=atol, rtol=0)
+
+
+def test_forward_smem_fits_the_flagship_calls():
+    """The forward kernel's shared memory is sized in one place,
+    ``_fwd_smem_bytes``: both flagship calls (P = 16) fit the 48 KB a block
+    takes without opt-in, and the check accepts them at batch 16 (the pos
+    tables of the MVFex call in blocks of 16, pose3d without)."""
+    assert _fwd_smem_bytes(16) <= 48 * 1024
+    for Q, C, G in ((15, 256, 4), (16, 0, 0)):
+        for dtype in (torch.float32, torch.bfloat16):
+            feat = torch.zeros(64, 4096, 128, dtype=dtype)
+            loc, w = torch.zeros(64, Q, 4, 16, 2), torch.zeros(64, Q, 4, 16)
+            pos = torch.zeros(G, 4096, C, dtype=dtype) if C else None
+            _check_cuda_inputs(feat, loc, w, pos)
+
+
+@pytest.mark.parametrize("P", [512, 2048])
+def test_forward_smem_check_refuses_before_any_launch(P):
+    """A call whose corner lists exceed a block's shared memory raises in the
+    wrapper, on any device, before the kernel is built or launched. Lists
+    above 48 KB and within the opt-in limit are accepted (the kernel opts
+    in): P = 512 needs 64 KB, P = 2048 more than a block can take."""
+    feat = torch.zeros(2, 64, 8)
+    loc, w = torch.zeros(2, 3, 1, P, 2), torch.zeros(2, 3, 1, P)
+    assert _fwd_smem_bytes(P) > 48 * 1024
+    if P == 512:
+        _check_cuda_inputs(feat, loc, w, None)
+        return
+    before = lazy_deform_sample.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        _forward_kernel(feat, loc, w, None, False)
+    assert lazy_deform_sample.launches == before
+
+
+def _forward_case(case: str):
+    """Forward kernel cases on the card: ``c52_c36_h20`` (52 + 36 channels,
+    both 4 mod 8, so bf16 takes the 8-byte path; a 20x20 grid; 3 x 5 x 3 =
+    45 rows, which no block of 2 or 4 rows divides; P = 9, so a row's 36
+    corners take two ballots, the second partial), ``rings`` (the points on
+    the model's rays, :func:`_ring_loc`, where corners repeat),
+    ``out_of_grid`` (every point a cell or more outside the grid), ``p512``
+    (one row of 512 points: 64 KB of corner lists a block, so the kernel
+    opts in above 48 KB of shared memory) and ``offset_loc`` (``block``'s
+    inputs, with ``loc`` handed to the wrapper at an offset that the
+    kernel's 8-byte loads cannot take, so the wrapper copies it)."""
+    if case == "p512":
+        return _case("none", B=1, Q=1, nh=1, P=512)
+    if case == "offset_loc":
+        return _case("block")
+    if case == "c52_c36_h20":
+        return _case("block", Cin=52, C=36, H=20, B=3, Q=5, nh=3, P=9, G=3)
+    if case == "rings":
+        return _case("interleaved", rings=True)
+    feat, loc, w, pos, block = _case("block")
+    side = np.where(loc > 0.5, 1.1, -0.1).astype(np.float32)  # off every side
+    return feat, side + (loc - 0.5) * 0.01, w, pos, block
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["c52_c36_h20", "rings"])
+def test_forward_kernel_is_bitwise_reproducible_on_card(case):
+    """Two runs of the forward kernel on the same inputs give bitwise equal
+    s_feat, s_pos and s_one (no atomics; the split corner sums meet in a
+    fixed order), in fp32 and bf16; each call counts one launch."""
+    _needs_card()
+    feat, loc, w, pos, block = _forward_case(case)
+    feat_t, loc_t, w_t, pos_t = _tensors(feat, loc, w, pos)
+    for dtype in (torch.float32, torch.bfloat16):
+        c = lambda x: None if x is None else x.cuda().to(dtype)  # noqa: E731
+        args = (c(feat_t), loc_t.cuda(), w_t.cuda(), c(pos_t), block)
+        before = lazy_deform_sample.launches
+        first = lazy_deform_sample(*args)
+        second = lazy_deform_sample(*args)
+        torch.cuda.synchronize()
+        assert lazy_deform_sample.launches == before + 2
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 def _grads(feat, pos, seed=3):
