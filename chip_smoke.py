@@ -41,7 +41,9 @@ grid, per-head sampling through ``deform_sample.cu`` and
   2c. the per-head sampling kernel against its plain version at the MVFex
      and pose3d shapes of batch 16, fp32 and bf16, and the head-shared form
      at one shape; times of kernel, plain version and ``F.grid_sample``;
-  2d. the same for its backward (``d_value``, ``d_loc``, ``d_attn_w``);
+  2d. the same for its backward (``d_value``, ``d_loc``, ``d_attn_w``), with
+     uniform locations and with the model's own, all three gradients bitwise
+     equal over two runs, and the bf16 main-path sum of a step;
   3b. phase 3 in the reference order, and against the lazy order on the
      same weights;
   4b. phase 4 in the reference order: 7 launches of the per-head kernel per
@@ -660,10 +662,13 @@ def phase_msda_kernels(card):
     return record
 
 
-def phase_msda_backward_kernels(card):
-    """2d: the per-head sampling backward kernel vs its plain version at
-    both flagship shapes, with d_value (every call of the main path needs
-    it)."""
+def phase_msda_backward_kernels(card, model_locs):
+    """2d: the per-head sampling backward kernels vs their plain version at
+    both flagship shapes, fp32 and bf16, with uniform locations and with the
+    model's own, with d_value (every call of the main path needs it); all
+    three gradients must come out bitwise equal from two runs. Each case
+    prints its line, then the phase fails if any check failed; and the bf16
+    main-path sum of one step."""
     import torch.nn.functional as F
 
     from egorear_tpu_torch.ops.deform_attn import (
@@ -671,48 +676,83 @@ def phase_msda_backward_kernels(card):
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     record = None
+    failures = []
+    main_path = {}  # locations -> ms of the bf16 main-path calls of one step
     names = ("d_value", "d_loc", "d_attn_w")
-    for name, shape in MSDA_SHAPES.items():
-        for dtype in (torch.float32, torch.bfloat16):
-            value, loc, attn_w, g = msda_inputs(shape, dtype, gen)
-            got = deformable_sampling_backward(value, loc, attn_w, g)
-            torch.cuda.synchronize()
-            # The oracle runs in fp32 on the same (possibly bf16) inputs.
-            want = deformable_sampling_backward_plain(value.float(), loc, attn_w,
-                                                      g.float())
-            errs, abs_errs = {}, []
-            for n, a, b in zip(names, got, want):
-                scale = float(b.float().abs().max())
-                err = float((a.float() - b.float()).abs().max())
-                errs[n] = err / max(scale, 1e-30)
-                abs_errs.append(err)
-                if not err <= BWD_TOL[dtype] * scale:
-                    raise AssertionError(
-                        f"deform_sample backward {name} {dtype} {n}: max-abs "
-                        f"{err:.3e} > {BWD_TOL[dtype]:g} x {scale:.3e}")
-            ms = time_ms(lambda: deformable_sampling_backward(value, loc, attn_w, g))
-            plain_ms = time_ms(lambda: deformable_sampling_backward_plain(
-                value, loc, attn_w, g))
-            # Library yardstick: the autograd backward of one per-head
-            # F.grid_sample, grads on input and grid; the backward only.
-            v, grid = _grid_sample_operands(value, loc, requires_grad=True)
-            out = F.grid_sample(v, grid, mode="bilinear", padding_mode="zeros",
-                                align_corners=False)
-            g_out = torch.randn_like(out)
-            library_ms = time_ms(lambda: torch.autograd.grad(
-                out, (v, grid), g_out, retain_graph=True))
-            del out, v, grid, g_out
-            bound_ms, bound_by = msda_bound_ms(value, loc, attn_w, backward=True)
-            err_txt = " ".join(f"{n}={e:.2e}" for n, e in errs.items())
-            print(f"[2d] deform_sample_bwd {name} {str(dtype)[6:]} "
-                  f"{'x'.join(str(n) for n in value.shape)} Q={shape['Q']}: "
-                  f"max-abs/scale {err_txt} (tol {BWD_TOL[dtype]:g}) "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-                  f"bound_ms={bound_ms:.4f} ({bound_by}) | {card}", flush=True)
-            if name == "mvfex" and dtype == torch.bfloat16:
-                record = dict(max_abs_err=max(abs_errs), ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by,
-                              library_ms=library_ms)
+    cases = [(name, shape, dtype, locs) for name, shape in MSDA_SHAPES.items()
+             for dtype in (torch.float32, torch.bfloat16)
+             for locs in ("uniform", "model")]
+    for name, shape, dtype, locs in cases:
+        value, loc, attn_w, g = msda_inputs(shape, dtype, gen)
+        if locs == "model":
+            loc, attn_w = model_locs[name]
+            if attn_w.shape != (shape["B"], shape["Q"], shape["nh"], shape["P"]):
+                raise AssertionError(f"locations {tuple(loc.shape)} do not fit {shape}")
+        case = f"deform_sample backward {name} {str(dtype)[6:]} {locs}"
+        n_slices, n_corners = msda_corner_slices(value, loc)
+        in_grid = n_corners / (4 * attn_w.numel())
+        got = deformable_sampling_backward(value, loc, attn_w, g)
+        again = deformable_sampling_backward(value, loc, attn_w, g)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not bitwise:
+            failures.append(f"{case}: outputs differ between two runs")
+        del again
+        # The oracle runs in fp32 on the same (possibly bf16) inputs.
+        want = deformable_sampling_backward_plain(value.float(), loc, attn_w,
+                                                  g.float())
+        errs, abs_errs = {}, []
+        for n, a, b in zip(names, got, want):
+            scale = float(b.float().abs().max())
+            err = float((a.float() - b.float()).abs().max())
+            errs[n] = err / max(scale, 1e-30)
+            abs_errs.append(err)
+            if not err <= BWD_TOL[dtype] * scale:
+                failures.append(f"{case} {n}: max-abs {err:.3e} > "
+                                f"{BWD_TOL[dtype]:g} x {scale:.3e}")
+        del got, want
+        ms = time_ms(lambda: deformable_sampling_backward(value, loc, attn_w, g))
+        # Without d_value only the adjoint kernel runs: the difference is
+        # the d_value kernel, and d_value's bytes over it its write rate.
+        adjoint_ms = time_ms(lambda: deformable_sampling_backward(
+            value, loc, attn_w, g, need_value=False))
+        write_tbs = value.numel() * value.element_size() / max(ms - adjoint_ms, 1e-9) / 1e9
+        plain_ms = time_ms(lambda: deformable_sampling_backward_plain(
+            value, loc, attn_w, g))
+        # Library yardstick: the autograd backward of one per-head
+        # F.grid_sample, grads on input and grid; the backward only.
+        v, grid = _grid_sample_operands(value, loc, requires_grad=True)
+        out = F.grid_sample(v, grid, mode="bilinear", padding_mode="zeros",
+                            align_corners=False)
+        g_out = torch.randn_like(out)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            out, (v, grid), g_out, retain_graph=True))
+        del out, v, grid, g_out
+        bound_ms, bound_by = msda_bound_ms(value, loc, attn_w, backward=True)
+        err_txt = " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+        print(f"[2d] deform_sample_bwd {name} {str(dtype)[6:]} {locs} "
+              f"{'x'.join(str(n) for n in value.shape)} Q={shape['Q']}: "
+              f"corners in grid {in_grid:.4f}, in-grid corners per (b, cell, "
+              f"head) slice {n_corners / max(n_slices, 1):.4f}: max-abs/scale "
+              f"{err_txt} (tol {BWD_TOL[dtype]:g}; "
+              f"{'' if bitwise else 'NOT '}bitwise equal in 2 runs) "
+              f"ms={ms:.4f} (without d_value {adjoint_ms:.4f}: d_value "
+              f"{write_tbs:.2f} TB/s) plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}) | {card}", flush=True)
+        if dtype == torch.bfloat16:
+            main_path[locs] = main_path.get(locs, 0.0) + (
+                LAUNCHES_MVFEX if name == "mvfex" else LAUNCHES_POSE3D) * ms
+        if name == "mvfex" and dtype == torch.bfloat16 and locs == "uniform":
+            record = dict(max_abs_err=max(abs_errs), ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms)
+    print(f"[2d] deform_sample_bwd main path of a bf16 step ({LAUNCHES_MVFEX} "
+          f"x MVFex + {LAUNCHES_POSE3D} x pose3d, kernel times above): "
+          + ", ".join(f"{locs} {ms:.4f} ms" for locs, ms in main_path.items())
+          + f" | {card}", flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
     return record
 
 
@@ -1183,7 +1223,8 @@ def main() -> int:
         "lazy_deform_sample_bwd": timed("2b", phase_backward_kernels, card,
                                         model_locs),
         "deform_sample": timed("2c", phase_msda_kernels, card),
-        "deform_sample_bwd": timed("2d", phase_msda_backward_kernels, card)}
+        "deform_sample_bwd": timed("2d", phase_msda_backward_kernels, card,
+                                   model_locs)}
     serve, train = {}, {}
     for lazy in (True, False):
         b = "" if lazy else "b"

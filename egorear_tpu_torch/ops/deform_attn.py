@@ -585,16 +585,44 @@ def _check_sampling_inputs(value, loc, attn_w):
                          f"shared memory")
 
 
-def _sampling_bwd_smem_bytes(nh: int, P: int, ch: int) -> int:
-    """Shared memory of the backward kernel: the fp32 upstream-gradient row
-    of every head, 4 corner records of 16 bytes per point, one weight per
-    point (see ``csrc/deform_sample_bwd.cu``)."""
-    return 4 * nh * ch + nh * P * (4 * 16 + 4)
+# The per-head backward's d_value kernel (csrc/deform_sample_bwd.cu): a
+# block owns as many cells as fill this many times 64 KB in fp32; its tile
+# holds at most this many bytes of fp32 slices; its block scan takes this
+# many ints (16 warp totals and their sum, rounded up to 4).
+_SAMPLING_BWD_SPAN_ROWS = 4
+_SAMPLING_BWD_TILE_BYTES = 32 * 1024
+_SAMPLING_BWD_SCAN_INTS = 20
 
 
-def _check_sampling_backward_inputs(value, loc, attn_w, g):
+def _sampling_bwd_layout(HW: int, Q: int, nh: int, ch: int, P: int,
+                         elem: int) -> Tuple[int, int, int]:
+    """``(span, cap, bytes)`` of the d_value kernel of
+    ``csrc/deform_sample_bwd.cu``, which the wrapper passes to it: the
+    cells a block owns (4 times the cells whose fp32 rows fill 64 KB, one
+    at least, at most the grid), the (cell, head) slices its fp32 tile
+    holds at a time (a multiple of 16, the kernel's warps), and the block's
+    shared memory, in the kernel's order: the tile (cap, ch), a list key
+    and a scale of 4 bytes each for every corner of a batch element
+    (4 * Q * nh * P), the block scan, a bit for each slice of the span and
+    a rank for each word of bits (each in 16-byte runs), the slice of each
+    rank (one for each corner at most, or for each slice), and the
+    element's upstream-gradient rows (Q, nh * ch) as stored (``elem`` bytes
+    a value). Its other kernel, for ``d_loc`` and ``d_attn_w``, takes none.
+    Within the opt-in limit a batch element has fewer than 7,300 points, so
+    a list key's g row (q * nh + h) fits its 14 bits and a slice its 18."""
+    rowlen = nh * ch
+    span = min(HW, _SAMPLING_BWD_SPAN_ROWS * max(1, 16 * 1024 // rowlen))
+    cap = max(16, _SAMPLING_BWD_TILE_BYTES // (4 * ch) // 16 * 16)
+    corners = 4 * Q * nh * P
+    words = 16 * -(-span * nh // 128)
+    ranks = 4 * -(-min(corners, span * nh) // 4)
+    return span, cap, (4 * cap * ch + 8 * corners + 4 * _SAMPLING_BWD_SCAN_INTS
+                       + 2 * words + 4 * ranks + elem * Q * rowlen)
+
+
+def _check_sampling_backward_inputs(value, loc, attn_w, g, need_value: bool = True):
     _check_sampling_inputs(value, loc, attn_w)
-    B, _, _, nh, ch = value.shape
+    B, H, W, nh, ch = value.shape
     Q, P = attn_w.shape[1], attn_w.shape[3]
     if g is None or tuple(g.shape) != (B, Q, nh * ch):
         raise ValueError(f"g must be {(B, Q, nh * ch)}, got "
@@ -606,14 +634,18 @@ def _check_sampling_backward_inputs(value, loc, attn_w, g):
     if not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError("the backward kernel needs a contiguous g with a "
                          "16-byte aligned base")
-    if _sampling_bwd_smem_bytes(nh, P, ch) > _SMEM_LIMIT:
-        raise ValueError(f"nh={nh}, P={P}, ch={ch} exceed the backward "
-                         f"kernel's shared memory")
+    if not need_value:
+        return
+    smem = _sampling_bwd_layout(H * W, Q, nh, ch, P, value.element_size())[2]
+    if smem > _SMEM_OPTIN_LIMIT:
+        raise ValueError(f"Q={Q}, nh={nh}, ch={ch}, P={P} need {smem} bytes of "
+                         f"the d_value kernel's shared memory; a block takes "
+                         f"at most {_SMEM_OPTIN_LIMIT}")
 
 
 def _vector_width(value) -> int:
-    """4 channels a load where every head slice starts on a 4-element
-    boundary of an aligned base, else 1 (the kernels' scalar path)."""
+    """4 channels a load of the forward kernel where every head slice starts
+    on a 4-element boundary of an aligned base, else 1 (its scalar path)."""
     ch = value.shape[-1]
     return 4 if ch % 4 == 0 and value.data_ptr() % (4 * value.element_size()) == 0 else 1
 
@@ -646,29 +678,30 @@ def _sampling_backward_kernel(value, loc, attn_w, g, need_value: bool):
     loc = loc.to(torch.float32).contiguous()
     attn_w = attn_w.to(torch.float32).contiguous()
     g = _aligned16(g)
-    _check_sampling_backward_inputs(value, loc, attn_w, g)
+    _check_sampling_backward_inputs(value, loc, attn_w, g, need_value)
     B, H, W, nh, ch = value.shape
     Q, P = attn_w.shape[1], attn_w.shape[3]
     dev, f32 = value.device, torch.float32
-    # fp32 target of the atomic scatter, zeroed; cast at the end for bf16.
-    d_value = torch.zeros(value.shape, device=dev, dtype=f32) if need_value else None
+    span, cap, smem = _sampling_bwd_layout(H * W, Q, nh, ch, P,
+                                           value.element_size())
+    # d_value is written in full, in value's dtype, by the blocks that own
+    # its cells.
+    d_value = torch.empty_like(value) if need_value else None
     d_loc = torch.empty(B, Q, nh, P, 2, device=dev, dtype=f32)
     d_w = torch.empty(B, Q, nh, P, device=dev, dtype=f32)
 
     fn = kernels.load("deform_sample_bwd").egorear_deform_sample_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(_ptr(value), _ptr(loc), _ptr(attn_w), _ptr(g), _ptr(d_value),
-                _ptr(d_loc), _ptr(d_w), B, H, W, Q, nh, ch, P,
-                _vector_width(value), _DTYPE_CODES[value.dtype], stream)
+                _ptr(d_loc), _ptr(d_w), B, H, W, Q, nh, ch, P, span, cap,
+                smem, _DTYPE_CODES[value.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"deformable_sampling backward kernel launch failed: "
                            f"CUDA error {rc}")
     deformable_sampling_backward.launches += 1
-    if d_value is not None:
-        d_value = d_value.to(value.dtype)
     return d_value, d_loc, d_w
 
 
@@ -697,8 +730,8 @@ class DeformableSampling(torch.autograd.Function):
     the two kernels. ``loc`` and ``attn_w`` arrive in fp32 (the caller casts
     them inside the graph, as ``_sample_pallas_fwd`` does, so autograd casts
     their gradients back). Gradients are computed only for the inputs that
-    need them; ``d_value`` (the zero-fill and the scatter) only when
-    ``value`` needs one.
+    need them; ``d_value`` only when ``value`` needs one. On the card every
+    gradient is summed in a fixed order, so runs are bitwise reproducible.
     """
 
     @staticmethod

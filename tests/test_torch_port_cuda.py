@@ -27,6 +27,7 @@ from egorear_tpu_torch.ops.deform_attn import (
     _forward_kernel,
     _fwd_smem_bytes,
     _sampling_backward_kernel,
+    _sampling_bwd_layout,
     _sampling_kernel,
     _vector_width,
     deformable_sampling,
@@ -457,17 +458,26 @@ def test_backward_d_feat_is_bitwise_reproducible_on_card():
 # -- per-head deformable sampling (the reference order) ----------------------------
 
 
-def _msda_case(ch: int = 64, seed: int = 4):
-    """value (2, 16, 16, 4, ch), Q=15, P=16, locations in [-0.3, 1.3]
-    (corners off every side), weights normalised over the points, and an
-    upstream gradient of the output."""
+def _msda_case(ch: int = 64, seed: int = 4, H: int = 16, locs: str = "uniform"):
+    """value (2, H, H, 4, ch), Q=15, P=16, weights normalised over the
+    points, an upstream gradient of the output, and locations in [-0.3, 1.3]
+    (corners off every side), or with ``locs="one_cell"`` every point of a
+    batch element at one spot (each (cell, head) slice of its 4 corners
+    takes all Q * P = 240 points of its head), or with ``"out_of_grid"``
+    every point a cell or more outside the grid."""
     rng = np.random.default_rng(seed)
-    B, H, Q, nh, P = 2, 16, 15, 4, 16
+    B, Q, nh, P = 2, 15, 4, 16
     value = rng.normal(size=(B, H, H, nh, ch)).astype(np.float32)
     loc = rng.uniform(-0.3, 1.3, size=(B, Q, nh, P, 2)).astype(np.float32)
     w = rng.uniform(size=(B, Q, nh, P)).astype(np.float32)
     w /= w.sum(axis=-1, keepdims=True)
     g = rng.normal(size=(B, Q, nh * ch)).astype(np.float32)
+    if locs == "one_cell":
+        spot = np.array([[0.37, 0.52], [0.71, 0.18]], dtype=np.float32)
+        loc = np.broadcast_to(spot[:, None, None, None], loc.shape).copy()
+    elif locs == "out_of_grid":
+        side = np.where(loc > 0.5, 1.1, -0.1).astype(np.float32)
+        loc = side + (loc - 0.5) * 0.01
     return [torch.from_numpy(x) for x in (value, loc, w, g)]
 
 
@@ -537,6 +547,51 @@ def test_vector_width_follows_channels_and_alignment():
     assert _vector_width(_misaligned(value)) == 1  # base 4 bytes off
 
 
+def test_sampling_backward_smem_fits_the_flagship_calls():
+    """The d_value kernel's shared memory is sized in one place,
+    ``_sampling_bwd_layout``: at both flagship calls (batch 16, 64x64 grid,
+    4 heads, P = 16; MVFex ch = 64, Q = 15; pose3d ch = 32, Q = 16) a block
+    owns 256 or 512 cells (four 64 KB rows of fp32 cells), its 32 KB tile
+    holds 128 or 256 slices (a multiple of the 16 warps), two blocks fit
+    an SM's 228 KB (1 KB of it reserved per block) in fp32 and bf16, and
+    the check accepts the calls."""
+    for ch, Q, span_cells, slots in ((64, 15, 256, 128), (32, 16, 512, 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            span, cap, smem = _sampling_bwd_layout(4096, Q, 4, ch, 16, dtype.itemsize)
+            assert (span, cap) == (span_cells, slots)
+            assert 48 * 1024 < smem and 2 * (smem + 1024) <= 228 * 1024
+            value = torch.zeros(64, 64, 64, 4, ch, dtype=dtype)
+            loc, w = torch.zeros(64, Q, 4, 16, 2), torch.zeros(64, Q, 4, 16)
+            g = torch.zeros(64, Q, 4 * ch, dtype=dtype)
+            _check_sampling_backward_inputs(value, loc, w, g)
+    # A grid smaller than a span: one block of every cell; tile slots are a
+    # multiple of 16 for any channel count.
+    assert _sampling_bwd_layout(15 * 15, 15, 4, 64, 16, 2)[0] == 225
+    assert _sampling_bwd_layout(16 * 16, 15, 4, 13, 16, 2)[1] == 624
+
+
+@pytest.mark.parametrize("case", ["wide_rows", "many_points"])
+def test_sampling_backward_smem_check_refuses_before_any_launch(case):
+    """A call whose d_value kernel would need more shared memory than a
+    block takes after opt-in raises in the wrapper, on any device, before a
+    kernel is built or launched: upstream-gradient rows too wide to stage
+    (nh * ch = 8192 channels of 15 queries), or too many points for the
+    corner list (Q = 2000). Without d_value only the adjoint kernel runs,
+    which takes no shared memory, and the check accepts both."""
+    B, H, Q, nh, ch, P = 2, 4, 15, 4, 2048, 16
+    if case == "many_points":
+        Q, ch = 2000, 8
+    value = torch.zeros(B, H, H, nh, ch)
+    loc, w = torch.zeros(B, Q, nh, P, 2), torch.zeros(B, Q, nh, P)
+    g = torch.zeros(B, Q, nh * ch)
+    assert _sampling_bwd_layout(H * H, Q, nh, ch, P, 4)[2] > 232448
+    before = deformable_sampling_backward.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        _sampling_backward_kernel(value, loc, w, g, True)
+    assert deformable_sampling_backward.launches == before
+    _check_sampling_backward_inputs(value, loc, w, g, need_value=False)
+
+
 def test_sampling_kernel_wrappers_raise_before_any_launch():
     """The kernel wrappers check first: what the kernels cannot take raises
     and is never handed to the plain versions."""
@@ -552,24 +607,83 @@ def test_sampling_kernel_wrappers_raise_before_any_launch():
             deformable_sampling_backward.launches) == before
 
 
+@pytest.mark.parametrize("name", ["lazy_deform_sample", "lazy_deform_sample_bwd",
+                                  "deform_sample", "deform_sample_bwd"])
+def test_wrappers_pass_what_the_entry_points_declare(monkeypatch, name):
+    """Each kernel wrapper hands its C entry point as many arguments as the
+    source declares, and declares as many ``argtypes``: the library is
+    replaced by a stand-in that records the call (CPU tensors; nothing is
+    built or launched)."""
+    import contextlib
+    import re
+    from pathlib import Path
+
+    from egorear_tpu_torch import kernels
+    from egorear_tpu_torch.ops import deform_attn as da
+
+    src = (Path(kernels.CSRC) / f"{name}.cu").read_text()
+    decl = re.search(r'extern "C" int (\w+)\(([^)]*)\)', src)
+    n_params = len(decl.group(2).split(","))
+    calls = []
+
+    def entry(*args):
+        calls.append((len(args), len(entry.argtypes)))
+        return 0
+
+    monkeypatch.setattr(kernels, "load", lambda _: type("Lib", (), {decl.group(1): entry}))
+    monkeypatch.setattr(torch.cuda, "device", lambda _: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda _: type("Stream", (), {"cuda_stream": 0}))
+    if name.startswith("lazy"):
+        feat, loc, w, pos, block = _tensors(*_case("block")[:4]) + [True]
+        if name == "lazy_deform_sample":
+            da._forward_kernel(feat, loc, w, pos, block)
+        else:
+            da._backward_kernel(feat, loc, w, pos, block, *_grads(feat, pos), True, True)
+    else:
+        value, loc, w, g = _msda_case()
+        if name == "deform_sample":
+            da._sampling_kernel(value, loc, w)
+        else:
+            da._sampling_backward_kernel(value, loc, w, g, True)
+    assert calls == [(n_params, n_params)]
+
+
 def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
 
 
+def _msda_card_case(case: str):
+    """``_msda_case`` by name: ``ch64``, ``ch32``, ``ch13`` (no vector width
+    divides it: the scalar paths), ``ch64_misaligned`` (value's base 4
+    bytes off: the scalar loads), ``one_cell`` (the longest per-slice sum),
+    ``h24`` (a 24x24 grid: 576 cells, two full 256-cell blocks of d_value
+    and a partial one) and ``out_of_grid`` (every gradient exactly zero). With
+    uniform locations a block touches several times the 128 slices its
+    tile holds, so it sums them in rounds."""
+    if case in ("one_cell", "out_of_grid"):
+        return _msda_case(locs=case)
+    if case == "h24":
+        return _msda_case(H=24)
+    return _msda_case(int(case[2:4]))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ch64", "ch32", "ch13", "ch64_misaligned"])
+@pytest.mark.parametrize("case", ["ch64", "ch32", "ch13", "ch64_misaligned",
+                                  "one_cell", "h24", "out_of_grid"])
 def test_sampling_kernels_match_plain_on_card(case):
     """Both kernels vs their plain versions: forward fp32 1e-5 of the
     largest output (sums in another order), bf16 1e-2 of it (the plain
     version in fp32 on the same bf16 inputs: one bf16 rounding of each
-    output); backward fp32 1e-4 of each gradient's largest value (atomics in
-    a varying order), bf16 1e-2 (one bf16 rounding of d_value), with and
-    without d_value. ch=13 and a misaligned base take the scalar path.
-    ``chip_smoke.py`` does the same at the flagship shapes."""
+    output); backward fp32 1e-4 of each gradient's largest value (sums in
+    another order), bf16 1e-2 (one bf16 rounding of d_value), with and
+    without d_value (:func:`_msda_card_case`). The wrapper allocates
+    d_value and never zeroes it: with every corner out of the grid, every
+    output is exactly zero. ``chip_smoke.py`` does the same at the flagship
+    shapes."""
     _needs_card()
-    ch = int(case[2:4])
-    value, loc, w, g = _msda_case(ch)
+    value, loc, w, g = _msda_card_case(case)
     for dtype in (torch.float32, torch.bfloat16):
         v = value.cuda().to(dtype)
         if case.endswith("misaligned"):
@@ -596,9 +710,36 @@ def test_sampling_kernels_match_plain_on_card(case):
                 if b is None:
                     assert a is None
                     continue
+                assert a.is_cuda and a.shape == b.shape
+                if case == "out_of_grid":
+                    assert not bool(a.any()) and not bool(b.any())
                 scale = float(b.abs().max())
                 torch.testing.assert_close(a.float().cpu(), b.float(),
                                            atol=rtol * scale, rtol=0)
+            if need_value:
+                assert got[0].dtype == dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ch64", "one_cell", "ch13", "h24"])
+def test_sampling_backward_is_bitwise_reproducible_on_card(case):
+    """Two runs of the backward kernels on the same inputs give bitwise
+    equal d_value, d_loc and d_attn_w (no atomics: each slice of d_value is
+    summed by one warp in list order, each corner adjoint by a fixed shuffle
+    tree), in fp32 and bf16, with every point of a batch element on one
+    cell too; each call counts one launch."""
+    _needs_card()
+    value, loc, w, g = _msda_card_case(case)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (value.cuda().to(dtype), loc.cuda(), w.cuda(), g.cuda().to(dtype))
+        before = deformable_sampling_backward.launches
+        first = deformable_sampling_backward(*args)
+        second = deformable_sampling_backward(*args)
+        torch.cuda.synchronize()
+        assert deformable_sampling_backward.launches == before + 2
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+        assert first[0].dtype == dtype and first[0].shape == value.shape
 
 
 @pytest.mark.cuda

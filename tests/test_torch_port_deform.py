@@ -7,7 +7,8 @@ on the same numpy inputs, fp32 on the CPU:
     under ``pltpu.force_tpu_interpret_mode()``), 1e-5;
   * the plain backward vs ``jax.vjp(_sample_onehot)`` (what
     ``_pallas_bwd_rule`` computes) and ``jax.grad`` through ``_sample_gather``,
-    1e-5 of each gradient's largest value;
+    1e-5 of each gradient's largest value; and in bf16 on clustered points
+    vs ``jax.vjp(_sample_onehot)``, ``d_value`` within one bf16 rounding;
   * the autograd node vs autograd through the plain forward, and its
     ``needs_input_grad`` handling;
   * the head-shared form vs ``_sample_shared_gather`` and the interpreted
@@ -100,6 +101,43 @@ def test_plain_backward_matches_jax(reference):
         want = jax.grad(lambda v, l, a: (_sample_gather(v, l, a) * g).sum(),
                         argnums=(0, 1, 2))(value, loc, w)
     _assert_grads_close(got, want)
+
+
+def test_plain_backward_bf16_matches_jax_on_shared_cells():
+    """The plain backward, the card kernel's oracle, in bf16 vs
+    ``jax.vjp(_sample_onehot)`` on the same bf16 value and upstream gradient
+    (fp32 locations and weights, as both packages sample), with the points
+    of each query clustered within a cell or so of one of 3 spots per batch
+    element, so that about 20 in-grid corners share each (b, cell, head)
+    slice they touch. Both sum in fp32 and round d_value to bf16 once:
+    d_value within one bf16 rounding (2^-8 of its largest value; measured
+    bitwise equal), d_loc and d_attn_w (fp32) within 1e-5 of scale
+    (measured <= 1.1e-7)."""
+    rng = np.random.default_rng(11)
+    B, H, nh, ch, Q, P = 2, 16, 4, 8, 15, 16
+    value = rng.normal(size=(B, H, H, nh, ch)).astype(np.float32)
+    spots = rng.uniform(0.1, 0.9, size=(B, 3, 2))
+    pick = rng.integers(0, 3, size=(B, Q))
+    loc = (spots[np.arange(B)[:, None], pick][:, :, None, None, :]
+           + rng.normal(scale=0.5 / H, size=(B, Q, nh, P, 2))).astype(np.float32)
+    w = rng.uniform(size=(B, Q, nh, P)).astype(np.float32)
+    w /= w.sum(axis=-1, keepdims=True)
+    g = rng.normal(size=(B, Q, nh * ch)).astype(np.float32)
+    v16, g16 = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (value, g))
+    _, vjp = jax.vjp(_sample_onehot, v16, jnp.asarray(loc), jnp.asarray(w))
+    want = [np.asarray(x.astype(jnp.float32)) for x in vjp(g16)]
+    as_bf16 = lambda x: torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()  # noqa: E731
+    got = deformable_sampling_backward_plain(as_bf16(v16), *_t(loc, w), as_bf16(g16))
+    assert [x.dtype for x in got] == [torch.bfloat16, torch.float32, torch.float32]
+    cell, wb = deform_attn._corner_terms(torch.from_numpy(loc), H, H)[:2]
+    slices = ((torch.arange(B).view(B, 1, 1, 1, 1) * H * H + cell) * nh
+              + torch.arange(nh).view(1, 1, nh, 1, 1))[wb > 0]
+    assert slices.numel() >= 15 * torch.unique(slices).numel()
+    for name, a, b, rtol in zip(("d_value", "d_loc", "d_attn_w"), got, want,
+                                (2.0 ** -8, 1e-5, 1e-5)):
+        scale = float(np.abs(b).max())
+        err = float(np.abs(a.float().numpy() - b).max())
+        assert err <= rtol * scale, f"{name}: {err:.3e} > {rtol:g} x {scale:.3e}"
 
 
 def test_autograd_node_matches_autograd_through_plain():
