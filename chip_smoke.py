@@ -27,8 +27,10 @@ beside the card's name and power limit:
      ``entry.build`` and check that the main path launched the forward
      kernel 7 times per forward;
   5. take one fp32 training step (256 px, batch 2, TF32 off) through the
-     kernels and one through the plain versions from the same state, and
-     compare gradients, parameters and BN running stats;
+     plain versions and one through the kernels from the same state, the
+     kernel step's ReLUs on the plain step's side of their kink
+     (:func:`pinned_relus`), and compare gradients, parameters and BN
+     running stats;
   6. train the flagship as users would (``entry.build_train``, bf16-mixed,
      batch 32, the configured schedule) and check that every step launched
      the forward and the backward kernel 7 times each and that the loss
@@ -40,7 +42,9 @@ grid, per-head sampling through ``deform_sample.cu`` and
 
   2c. the per-head sampling kernel against its plain version at the MVFex
      and pose3d shapes of batch 16, fp32 and bf16, and the head-shared form
-     at one shape; times of kernel, plain version and ``F.grid_sample``;
+     at one shape, with uniform locations and with the model's own, every
+     output bitwise equal over two runs; times of kernel, plain version and
+     ``F.grid_sample``;
   2d. the same for its backward (``d_value``, ``d_loc``, ``d_attn_w``), with
      uniform locations and with the model's own, all three gradients bitwise
      equal over two runs, and the bf16 main-path sum of a step;
@@ -63,6 +67,7 @@ fails. Its last two lines are the per-kernel JSON record and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -605,9 +610,16 @@ def _grid_sample_operands(value, loc, requires_grad=False):
     return v.requires_grad_(requires_grad), grid.contiguous().requires_grad_(requires_grad)
 
 
-def phase_msda_kernels(card):
+def phase_msda_kernels(card, model_locs):
     """2c: the per-head sampling kernel vs its plain version at both
-    flagship shapes, and the head-shared form at one shape."""
+    flagship shapes, fp32 and bf16, and the head-shared form in bf16 (with
+    pose3d's locations, which fit its shape), each with uniform locations
+    and with the model's own; every output must come out bitwise equal
+    from two runs. Each case also times the call with every point moved off
+    the grid (no gathers: the launch, the corner lists and the store), and
+    the phase an empty one-block launch (``torch.cuda._sleep(0)``), the
+    floor of ``time_ms``. Each case prints its line, then the phase fails
+    if any check failed."""
     import torch.nn.functional as F
 
     from egorear_tpu_torch.ops.deform_attn import (
@@ -616,14 +628,25 @@ def phase_msda_kernels(card):
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     record = None
-    cases = [(name, shape, dtype) for name, shape in MSDA_SHAPES.items()
-             for dtype in (torch.float32, torch.bfloat16)]
-    cases.append(("shared", SHARED_SHAPE, torch.bfloat16))
-    for name, shape, dtype in cases:
+    failures = []
+    empty_ms = time_ms(lambda: torch.cuda._sleep(0))
+    print(f"[2c] an empty one-block launch: {empty_ms:.4f} ms | {card}", flush=True)
+    cases = [(name, shape, dtype, locs) for name, shape in MSDA_SHAPES.items()
+             for dtype in (torch.float32, torch.bfloat16)
+             for locs in ("uniform", "model")]
+    cases += [("shared", SHARED_SHAPE, torch.bfloat16, locs)
+              for locs in ("uniform", "model")]
+    for name, shape, dtype, locs in cases:
         value, loc, attn_w, _ = msda_inputs(shape, dtype, gen)
+        if locs == "model":
+            loc, attn_w = model_locs["pose3d" if name == "shared" else name]
+            if attn_w.shape != (shape["B"], shape["Q"], shape["nh"], shape["P"]):
+                raise AssertionError(f"locations {tuple(loc.shape)} do not fit {shape}")
+        case = f"deform_sample {name} {str(dtype)[6:]} {locs}"
         if name == "shared":
             value = value[:, :, :, 0].contiguous()  # (B, H, W, Cs), one map
-            fn = lambda: deformable_sampling_shared(value, loc, attn_w)  # noqa: E731
+            call = lambda where: deformable_sampling_shared(  # noqa: E731
+                value, where, attn_w)
             plain = lambda: deformable_sampling_shared(  # noqa: E731
                 value, loc, attn_w, plain=True)
             want = deformable_sampling_shared(value.float(), loc, attn_w, plain=True)
@@ -633,32 +656,50 @@ def phase_msda_kernels(card):
                            loc.transpose(1, 2).reshape(B, nh * Q, 1, P, 2),
                            attn_w.transpose(1, 2).reshape(B, nh * Q, 1, P))
         else:
-            fn = lambda: deformable_sampling(value, loc, attn_w)  # noqa: E731
+            call = lambda where: deformable_sampling(value, where, attn_w)  # noqa: E731
             plain = lambda: deformable_sampling_plain(value, loc, attn_w)  # noqa: E731
             want = deformable_sampling_plain(value.float(), loc, attn_w)
             kernel_args = (value, loc, attn_w)
-        got = fn()
+        fn = lambda: call(loc)  # noqa: E731
+        off_grid = loc + 2.0  # loc >= 1.7, so every corner lies past the grid
+        n_slices, n_corners = msda_corner_slices(*kernel_args[:2])
+        in_grid = n_corners / (4 * kernel_args[2].numel())
+        got, again = fn(), fn()
         torch.cuda.synchronize()
+        bitwise = torch.equal(got, again)
+        if not bitwise:
+            failures.append(f"{case}: outputs differ between two runs")
         scale = float(want.abs().max())
         err = float((got.float() - want).abs().max())
         if not err <= FWD_TOL[dtype] * scale:
-            raise AssertionError(f"deform_sample {name} {dtype}: max-abs {err:.3e} "
-                                 f"> {FWD_TOL[dtype]:g} x {scale:.3e}")
+            failures.append(f"{case}: max-abs {err:.3e} > {FWD_TOL[dtype]:g} x "
+                            f"{scale:.3e}")
+        if bool(call(off_grid).any()):
+            failures.append(f"{case}: points off the grid give non-zero outputs")
+        del got, again, want
         ms, plain_ms = time_ms(fn), time_ms(plain)
+        off_ms = time_ms(lambda: call(off_grid))
         v, grid = _grid_sample_operands(*kernel_args[:2])
         library_ms = time_ms(lambda: F.grid_sample(
             v, grid, mode="bilinear", padding_mode="zeros", align_corners=False))
+        del v, grid
         bound_ms, bound_by = msda_bound_ms(*kernel_args)
-        print(f"[2c] deform_sample {name} {str(dtype)[6:]} "
+        print(f"[2c] deform_sample {name} {str(dtype)[6:]} {locs} "
               f"{'x'.join(str(n) for n in value.shape)} Q={loc.shape[1]} "
-              f"P={loc.shape[3]}: max-abs/scale {err / scale:.3e} (tol "
-              f"{FWD_TOL[dtype]:g}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
-              f"({bound_by}) | {card}", flush=True)
-        if name == "mvfex" and dtype == torch.bfloat16:
+              f"P={loc.shape[3]}: corners in grid {in_grid:.4f}, in-grid "
+              f"corners per (b, cell, head) slice "
+              f"{n_corners / max(n_slices, 1):.4f}: max-abs/scale "
+              f"{err / scale:.3e} (tol {FWD_TOL[dtype]:g}; "
+              f"{'' if bitwise else 'NOT '}bitwise equal in 2 runs) "
+              f"ms={ms:.4f} (every point off the grid {off_ms:.4f}) "
+              f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) | {card}", flush=True)
+        if name == "mvfex" and dtype == torch.bfloat16 and locs == "uniform":
             record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms)
+    if failures:
+        raise AssertionError("; ".join(failures))
     return record
 
 
@@ -985,9 +1026,56 @@ def _adam_param_check(name, got, want, grad, grad_tol, lr, eps=1e-8):
     return tight, loose
 
 
+@contextlib.contextmanager
+def pinned_relus(masks: list, flips: list | None = None):
+    """With ``flips`` None, records the mask (input > 0) of every ``F.relu``
+    call inside, in call order, into ``masks``. Otherwise the i-th call
+    takes ``masks[i]``: where its input's sign agrees with the mask it is
+    ``F.relu``, and where it does not it gives ``torch.where(mask, x, 0)``,
+    whose gradient follows the mask, and appends (inputs that disagree,
+    their largest |input| over the call's largest) to ``flips``.
+
+    ReLU's gradient jumps at 0, so an input that two runs round to either
+    side of it changes a gradient by a whole path, however small the input.
+    Pinning the kernel step's ReLUs to the plain step's side compares both
+    gradients on the same linear piece, where they are continuous in the
+    kernel's rounding; the caller requires every input that changed sides
+    to lie within FWD_TOL[fp32] of the call's scale of zero."""
+    import torch.nn.functional as F
+
+    relu, calls = F.relu, [0]
+
+    def relu_pinned(x, inplace=False):
+        if flips is None:
+            masks.append(x.detach() > 0)
+            return relu(x, inplace)
+        mask = masks[calls[0]]
+        calls[0] += 1
+        if mask.shape != x.shape:
+            raise AssertionError(f"ReLU call {calls[0] - 1}: shape {tuple(x.shape)}"
+                                 f", the recorded step's {tuple(mask.shape)}")
+        differ = (x.detach() > 0) != mask
+        if not bool(differ.any()):
+            return relu(x, inplace)
+        scale = float(x.detach().abs().max())
+        flips.append((int(differ.sum()),
+                       float(x.detach()[differ].abs().max()) / max(scale, 1e-30)))
+        return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    F.relu = relu_pinned
+    try:
+        yield
+    finally:
+        F.relu = relu
+    if flips is not None and calls[0] != len(masks):
+        raise AssertionError(f"{calls[0]} ReLU calls, the recorded step made "
+                             f"{len(masks)}")
+
+
 def phase_train_check(card, lazy: bool = True):
-    """One fp32 train step through the kernels vs one through the plain
-    versions, from the same state on the same batch."""
+    """One fp32 train step through the plain versions vs one through the
+    kernels, from the same state on the same batch, the kernel step's ReLUs
+    pinned to the plain step's masks (:func:`pinned_relus`)."""
     import copy
 
     from egorear_tpu_torch import entry
@@ -1016,14 +1104,15 @@ def phase_train_check(card, lazy: bool = True):
         raise AssertionError(f"anchors not partly valid (2D {valid_2d}, 3D "
                              f"{valid_3d}): the check would not see the kernel")
 
-    runs = {}
-    for impl in ("kernel", "plain"):
+    runs, masks, flips = {}, [], []
+    for impl in ("plain", "kernel"):
         for m in deform_attns(model):
             m.impl = impl
         model.load_state_dict(start)
         trainer.init_state(steps_per_epoch=1)
         reset_launches()
-        metrics = trainer.train_step(batch)
+        with pinned_relus(masks, flips if impl == "kernel" else None):
+            metrics = trainer.train_step(batch)
         torch.cuda.synchronize()
         launched = read_launches()
         runs[impl] = dict(
@@ -1040,6 +1129,10 @@ def phase_train_check(card, lazy: bool = True):
                              f", expected {expected_launches(lazy, 1, 1)}")
     if any(runs["plain"]["launched"].values()):
         raise AssertionError("the plain step launched a kernel")
+    kink = max((f[1] for f in flips), default=0.0)
+    if not kink <= FWD_TOL[torch.float32]:
+        raise AssertionError(f"a ReLU input {kink:.3e} of its call's scale from "
+                             f"zero changed sides (tol {FWD_TOL[torch.float32]:g})")
     fwd_name, bwd_name = (("lazy_deform_sample", "lazy_deform_sample_bwd") if lazy
                           else ("deform_sample", "deform_sample_bwd"))
     k, pl = runs["kernel"], runs["plain"]
@@ -1082,7 +1175,10 @@ def phase_train_check(card, lazy: bool = True):
           f"{floor:.1e}); params after the step {worst_tight:.3e} where "
           f"the gradient is determined, {worst_loose:.3e} elsewhere (Adam "
           f"bound 2 lr = {2 * pl['lr']:.1e}); BN running stats "
-          f"{stat_err:.3e} (tol {TRAIN_STAT_TOL:g}); launches (fwd, bwd) "
+          f"{stat_err:.3e} (tol {TRAIN_STAT_TOL:g}); ReLU inputs pinned across "
+          f"the kink {sum(f[0] for f in flips)} in {len(flips)} of {len(masks)} "
+          f"calls (largest {kink:.3e} of its call's scale, tol "
+          f"{FWD_TOL[torch.float32]:g}); launches (fwd, bwd) "
           f"({k['launched'][fwd_name]}, {k['launched'][bwd_name]}); valid "
           f"anchors 2D {valid_2d:.3f} 3D "
           f"{valid_3d:.3f} | {card}", flush=True)
@@ -1222,7 +1318,7 @@ def main() -> int:
         "lazy_deform_sample": timed("2", phase_kernels, card, model_locs),
         "lazy_deform_sample_bwd": timed("2b", phase_backward_kernels, card,
                                         model_locs),
-        "deform_sample": timed("2c", phase_msda_kernels, card),
+        "deform_sample": timed("2c", phase_msda_kernels, card, model_locs),
         "deform_sample_bwd": timed("2d", phase_msda_backward_kernels, card,
                                    model_locs)}
     serve, train = {}, {}

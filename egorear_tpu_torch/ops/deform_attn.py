@@ -50,11 +50,11 @@ Grads = Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor,
               Optional[torch.Tensor]]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 48 * 1024  # static shared memory a block may take without opt-in
 _SMEM_OPTIN_LIMIT = 232448  # an H100 block's dynamic shared memory after opt-in
 _BWD_TILE_BYTES = 64 * 1024  # the lazy backward's d_feat band tile, at most
-# (b, q, head) rows a block of the lazy forward kernel serves, one warp each:
-# 960 blocks of 128 threads for the MVFex call at batch 16, all resident at once.
+# (b, q, head) rows a block of either forward kernel (lazy and per-head)
+# serves, one warp each: 960 blocks of 128 threads for the MVFex call at
+# batch 16, all resident at once.
 _FWD_ROWS_PER_BLOCK = 4
 
 
@@ -498,11 +498,6 @@ lazy_deform_sample.launches = 0
 #   * ``csrc/deform_sample.cu`` and ``csrc/deform_sample_bwd.cu``, which
 #     :class:`DeformableSampling` launches for CUDA tensors, or raises.
 
-# A forward block's shared memory besides its corner records: the partial
-# sums of its point slices (see csrc/deform_sample.cu), at most this many bytes.
-_SAMPLING_PARTIALS_BYTES = 4 * 64 * 4 * 4
-
-
 def deformable_sampling_plain(value, loc, attn_w) -> torch.Tensor:
     """Plain PyTorch version: ``F.grid_sample`` per head.
 
@@ -580,9 +575,18 @@ def _check_sampling_inputs(value, loc, attn_w):
     if not value.is_contiguous():
         raise ValueError("deformable_sampling kernel needs a contiguous value")
     P = attn_w.shape[3]
-    if 32 * nh * P + _SAMPLING_PARTIALS_BYTES > _SMEM_LIMIT:
-        raise ValueError(f"nh * P = {nh * P} corners exceed the kernel's "
-                         f"shared memory")
+    if _sampling_fwd_smem_bytes(P) > _SMEM_OPTIN_LIMIT:
+        raise ValueError(f"P = {P} points need {_sampling_fwd_smem_bytes(P)} "
+                         f"bytes of the forward kernel's shared memory; a "
+                         f"block takes at most {_SMEM_OPTIN_LIMIT}")
+
+
+def _sampling_fwd_smem_bytes(P: int) -> int:
+    """Shared memory of a block of ``csrc/deform_sample.cu``, which the
+    wrapper passes to the kernel: for each of its ``_FWD_ROWS_PER_BLOCK``
+    warps (one (b, q, head) row each) a list of up to 4 * P in-grid corners,
+    8 bytes a record (cell index, fp32 weight)."""
+    return _FWD_ROWS_PER_BLOCK * 4 * P * 8
 
 
 # The per-head backward's d_value kernel (csrc/deform_sample_bwd.cu): a
@@ -644,10 +648,14 @@ def _check_sampling_backward_inputs(value, loc, attn_w, g, need_value: bool = Tr
 
 
 def _vector_width(value) -> int:
-    """4 channels a load of the forward kernel where every head slice starts
-    on a 4-element boundary of an aligned base, else 1 (its scalar path)."""
-    ch = value.shape[-1]
-    return 4 if ch % 4 == 0 and value.data_ptr() % (4 * value.element_size()) == 0 else 1
+    """Channels a load of the forward kernel, so that every head slice
+    starts on a load boundary: 16 bytes (4 fp32, 8 bf16) where ch and
+    value's base allow, else 8 bytes (4 bf16), else 1 (its scalar path)."""
+    ch, es, base = value.shape[-1], value.element_size(), value.data_ptr()
+    for nbytes in (16, 8) if es == 2 else (16,):
+        if (ch * es) % nbytes == 0 and base % nbytes == 0:
+            return nbytes // es
+    return 1
 
 
 def _sampling_kernel(value, loc, attn_w) -> torch.Tensor:
@@ -655,17 +663,18 @@ def _sampling_kernel(value, loc, attn_w) -> torch.Tensor:
     _check_sampling_inputs(value, loc, attn_w)
     B, H, W, nh, ch = value.shape
     Q, P = attn_w.shape[1], attn_w.shape[3]
-    loc = loc.to(torch.float32).contiguous()
+    loc = _aligned16(loc.to(torch.float32))  # read as float2
     attn_w = attn_w.to(torch.float32).contiguous()
     out = torch.empty(B, Q, nh * ch, device=value.device, dtype=value.dtype)
 
     fn = kernels.load("deform_sample").egorear_deform_sample
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
         rc = fn(_ptr(value), _ptr(loc), _ptr(attn_w), _ptr(out), B, H, W, Q, nh,
-                ch, P, _vector_width(value), _DTYPE_CODES[value.dtype], stream)
+                ch, P, _vector_width(value), _DTYPE_CODES[value.dtype],
+                _FWD_ROWS_PER_BLOCK, _sampling_fwd_smem_bytes(P), stream)
     if rc != 0:
         raise RuntimeError(f"deformable_sampling kernel launch failed: CUDA "
                            f"error {rc}")

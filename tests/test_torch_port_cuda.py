@@ -28,6 +28,7 @@ from egorear_tpu_torch.ops.deform_attn import (
     _fwd_smem_bytes,
     _sampling_backward_kernel,
     _sampling_bwd_layout,
+    _sampling_fwd_smem_bytes,
     _sampling_kernel,
     _vector_width,
     deformable_sampling,
@@ -458,15 +459,16 @@ def test_backward_d_feat_is_bitwise_reproducible_on_card():
 # -- per-head deformable sampling (the reference order) ----------------------------
 
 
-def _msda_case(ch: int = 64, seed: int = 4, H: int = 16, locs: str = "uniform"):
-    """value (2, H, H, 4, ch), Q=15, P=16, weights normalised over the
+def _msda_case(ch: int = 64, seed: int = 4, H: int = 16, locs: str = "uniform",
+               P: int = 16):
+    """value (2, H, H, 4, ch), Q=15, P points, weights normalised over the
     points, an upstream gradient of the output, and locations in [-0.3, 1.3]
     (corners off every side), or with ``locs="one_cell"`` every point of a
     batch element at one spot (each (cell, head) slice of its 4 corners
     takes all Q * P = 240 points of its head), or with ``"out_of_grid"``
     every point a cell or more outside the grid."""
     rng = np.random.default_rng(seed)
-    B, Q, nh, P = 2, 15, 4, 16
+    B, Q, nh = 2, 15, 4
     value = rng.normal(size=(B, H, H, nh, ch)).astype(np.float32)
     loc = rng.uniform(-0.3, 1.3, size=(B, Q, nh, P, 2)).astype(np.float32)
     w = rng.uniform(size=(B, Q, nh, P)).astype(np.float32)
@@ -541,10 +543,48 @@ def test_sampling_backward_check_refuses_what_the_kernel_cannot_take(fault):
 
 
 def test_vector_width_follows_channels_and_alignment():
+    """16-byte loads where every head slice starts on a 16-byte boundary
+    (4 fp32, 8 bf16 channels), else 8-byte bf16 loads (ch = 36, 4 mod 8),
+    else one channel (ch = 13, or a base 4 or 2 bytes off)."""
     value = _msda_case(64)[0]
-    assert _vector_width(value) == 4 and _vector_width(value.bfloat16()) == 4
+    assert _vector_width(value) == 4 and _vector_width(value.bfloat16()) == 8
+    assert _vector_width(_msda_case(36)[0]) == 4
+    assert _vector_width(_msda_case(36)[0].bfloat16()) == 4
     assert _vector_width(_msda_case(13)[0]) == 1
     assert _vector_width(_misaligned(value)) == 1  # base 4 bytes off
+    assert _vector_width(_misaligned(value.bfloat16())) == 1  # base 2 bytes off
+
+
+def test_sampling_fwd_smem_fits_the_flagship_calls():
+    """The per-head forward kernel's shared memory is sized in one place,
+    ``_sampling_fwd_smem_bytes``: the flagship calls (P = 16) take 2 KB a
+    block, within the 48 KB a block takes without opt-in, and the check
+    accepts them at batch 16 (MVFex ch = 64, Q = 15; pose3d ch = 32, Q = 16;
+    the head-shared form one map of 128 channels and 4 x 16 folded
+    queries)."""
+    assert _sampling_fwd_smem_bytes(16) == 2048
+    for nh, ch, Q in ((4, 64, 15), (4, 32, 16), (1, 128, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            value = torch.zeros(64, 64, 64, nh, ch, dtype=dtype)
+            loc, w = torch.zeros(64, Q, nh, 16, 2), torch.zeros(64, Q, nh, 16)
+            _check_sampling_inputs(value, loc, w)
+
+
+@pytest.mark.parametrize("P", [512, 2048])
+def test_sampling_fwd_smem_check_refuses_before_any_launch(P):
+    """A call whose corner lists exceed a block's shared memory raises in the
+    wrapper, on any device, before the kernel is built or launched. Lists
+    above 48 KB and within the opt-in limit are accepted (the kernel opts
+    in): P = 512 needs 64 KB, P = 2048 more than a block can take."""
+    value, loc, w, _ = _msda_case(P=P)
+    assert _sampling_fwd_smem_bytes(P) > 48 * 1024
+    if P == 512:
+        _check_sampling_inputs(value, loc, w)
+        return
+    before = deformable_sampling.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        _sampling_kernel(value, loc, w)
+    assert deformable_sampling.launches == before
 
 
 def test_sampling_backward_smem_fits_the_flagship_calls():
@@ -656,22 +696,29 @@ def _needs_card():
 
 def _msda_card_case(case: str):
     """``_msda_case`` by name: ``ch64``, ``ch32``, ``ch13`` (no vector width
-    divides it: the scalar paths), ``ch64_misaligned`` (value's base 4
-    bytes off: the scalar loads), ``one_cell`` (the longest per-slice sum),
-    ``h24`` (a 24x24 grid: 576 cells, two full 256-cell blocks of d_value
-    and a partial one) and ``out_of_grid`` (every gradient exactly zero). With
+    divides it: the scalar paths), ``ch36`` (4 mod 8: the forward's 8-byte
+    bf16 loads), ``ch64_misaligned`` (value's base 4 bytes off: the scalar
+    loads), ``one_cell`` (the longest per-slice sum), ``h24`` (a 24x24
+    grid: 576 cells, two full 256-cell blocks of d_value and a partial one),
+    ``out_of_grid`` (every output and gradient exactly zero) and ``p9`` (9
+    points: a row's 36 corners take two ballots, the second partial). With
     uniform locations a block touches several times the 128 slices its
     tile holds, so it sums them in rounds."""
     if case in ("one_cell", "out_of_grid"):
         return _msda_case(locs=case)
     if case == "h24":
         return _msda_case(H=24)
+    if case == "p9":
+        return _msda_case(P=9)
     return _msda_case(int(case[2:4]))
 
 
+MSDA_CARD_CASES = ["ch64", "ch32", "ch13", "ch36", "ch64_misaligned", "one_cell",
+                   "h24", "out_of_grid", "p9"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ch64", "ch32", "ch13", "ch64_misaligned",
-                                  "one_cell", "h24", "out_of_grid"])
+@pytest.mark.parametrize("case", MSDA_CARD_CASES)
 def test_sampling_kernels_match_plain_on_card(case):
     """Both kernels vs their plain versions: forward fp32 1e-5 of the
     largest output (sums in another order), bf16 1e-2 of it (the plain
@@ -740,6 +787,111 @@ def test_sampling_backward_is_bitwise_reproducible_on_card(case):
         for a, b in zip(first, second):
             assert torch.equal(a, b)
         assert first[0].dtype == dtype and first[0].shape == value.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MSDA_CARD_CASES + ["p512"])
+def test_sampling_forward_is_bitwise_reproducible_on_card(case):
+    """Two runs of the forward kernel on the same inputs give bitwise equal
+    outputs (no atomics: a warp sums its row's corner list in list order,
+    its lane groups meet in a fixed shuffle tree), in fp32 and bf16; each
+    call counts one launch. ``p512`` (512 points: 64 KB of corner lists a
+    block, so the kernel opts in above 48 KB of shared memory), which the
+    backward cannot take, is held against the plain version here too."""
+    _needs_card()
+    value, loc, w, _ = _msda_case(P=512) if case == "p512" else _msda_card_case(case)
+    for dtype in (torch.float32, torch.bfloat16):
+        v = value.cuda().to(dtype)
+        if case.endswith("misaligned"):
+            v = _misaligned(v)
+        before = deformable_sampling.launches
+        first = deformable_sampling(v, loc.cuda(), w.cuda())
+        second = deformable_sampling(v, loc.cuda(), w.cuda())
+        torch.cuda.synchronize()
+        assert deformable_sampling.launches == before + 2
+        assert torch.equal(first, second) and first.dtype == dtype
+        if case == "out_of_grid":
+            assert not bool(first.any())
+        if case == "p512":
+            want = deformable_sampling_plain(v.float().cpu(), loc, w)
+            tol = (1e-5 if dtype == torch.float32 else 1e-2) * float(want.abs().max())
+            torch.testing.assert_close(first.float().cpu(), want, atol=tol, rtol=0)
+
+
+def _fp64_sum(value, loc, w):
+    """The per-head forward on the CPU with the kernel's fp32 corner weights
+    (x = loc_x * W - 0.5 rounded as the kernel rounds it, then (1 - lx | lx)
+    * (1 - ly | ly) * attn_w, each operation in fp32) summed in fp64, and
+    the sum of the terms' magnitudes, both (B, Q, nh * ch) in fp64."""
+    B, H, W, nh, ch = value.shape
+    Q, P = w.shape[1], w.shape[3]
+    x = loc[..., 0].float() * float(W) - 0.5
+    y = loc[..., 1].float() * float(H) - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    lx, ly = x - x0, y - y0
+    rows = value.double().reshape(B, H * W, nh, ch)
+    b = torch.arange(B).view(B, 1, 1, 1)
+    h = torch.arange(nh).view(1, 1, nh, 1)
+    out = torch.zeros(B, Q, nh, ch, dtype=torch.float64)
+    mag = torch.zeros_like(out)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xc, yc = x0 + dx, y0 + dy
+            ok = (xc >= 0) & (xc < W) & (yc >= 0) & (yc < H)
+            wt = ((lx if dx else 1.0 - lx) * (ly if dy else 1.0 - ly)) * w.float()
+            wt = torch.where(ok, wt, 0.0).double()
+            cell = (yc.clamp(0, H - 1) * W + xc.clamp(0, W - 1)).long()
+            terms = wt[..., None] * rows[b, cell, h]
+            out += terms.sum(3)
+            mag += terms.abs().sum(3)
+    return out.reshape(B, Q, nh * ch), mag.reshape(B, Q, nh * ch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ch64", "ch13", "one_cell", "p9"])
+def test_sampling_forward_fp32_is_within_its_rounding_bound_on_card(case):
+    """On an fp32 map the kernel sums fp32 corner weights times fp32 values
+    in fp32. Its weights are those of :func:`_fp64_sum`, operation for
+    operation, and each product of two fp32 numbers is exact in fp64, so
+    the fp64 sum differs from the exact one by ~1e-16 relative. In the
+    kernel every term passes through at most n fmas of its lane group (n <=
+    4 P, the row's corners) and 5 additions of the shuffle tree, each
+    rounding by at most u = 2^-24 relative, so whatever order it takes
+
+        |out - sum| <= gamma_(n + 5) sum |w_k v_k|,  gamma_m = m u / (1 - m u),
+
+    Higham's bound for a recursive sum of n terms."""
+    _needs_card()
+    value, loc, w, _ = _msda_card_case(case)
+    got = deformable_sampling(value.cuda(), loc.cuda(), w.cuda())
+    torch.cuda.synchronize()
+    want, mag = _fp64_sum(value, loc, w)
+    m = 4 * w.shape[3] + 5
+    gamma = m * 2.0 ** -24 / (1 - m * 2.0 ** -24)
+    err = (got.cpu().double() - want).abs()
+    assert bool((err <= gamma * mag).all()), f"largest share of the bound " \
+        f"{float((err / (gamma * mag).clamp_min(1e-300)).max()):.3f}"
+
+
+@pytest.mark.cuda
+def test_sampling_shared_form_is_bitwise_reproducible_on_card():
+    """The head-shared form at the width of the flagship's raw memory (one
+    map of 128 channels, 4 heads folded into the queries; bf16 reads a slice
+    in 16 lanes of 16 bytes, fp32 in 32) vs its plain version, fp32 1e-5
+    and bf16 1e-2 of the largest output, and bitwise equal over two runs."""
+    _needs_card()
+    _, loc, w, _ = _msda_case()
+    vs = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 16, 16, 128)).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        v = vs.cuda().to(dtype)
+        first = deformable_sampling_shared(v, loc.cuda(), w.cuda())
+        second = deformable_sampling_shared(v, loc.cuda(), w.cuda())
+        torch.cuda.synchronize()
+        assert torch.equal(first, second) and first.dtype == dtype
+        want = deformable_sampling_shared(v.float().cpu(), loc, w)
+        tol = (1e-5 if dtype == torch.float32 else 1e-2) * float(want.abs().max())
+        torch.testing.assert_close(first.float().cpu(), want, atol=tol, rtol=0)
 
 
 @pytest.mark.cuda
