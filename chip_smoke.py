@@ -34,7 +34,9 @@ beside the card's name and power limit:
   6. train the flagship as users would (``entry.build_train``, bf16-mixed,
      batch 32, the configured schedule) and check that every step launched
      the forward and the backward kernel 7 times each and that the loss
-     falls over the timed steps.
+     falls over the timed steps; then one more step whose launches are kept
+     and each held against its plain version on the inputs the step gave
+     it, at the main path's shapes (:func:`kept_step`).
 
 The reference computation order (``lazy_deform=False``: the memory on the
 grid, per-head sampling through ``deform_sample.cu`` and
@@ -54,7 +56,32 @@ grid, per-head sampling through ``deform_sample.cu`` and
      forward and none of the lazy one;
   5b. phase 5 in the reference order;
   6b. phase 6 in the reference order: 7 + 7 launches of the per-head
-     kernels per step, none of the lazy ones.
+     kernels per step, none of the lazy ones, and the kept step.
+
+The training stages as ``configs/ego4view_syn_*.yaml`` chain them (the
+ImageNet weights are a seeded random ResNet-18 in torchvision's key layout,
+written to a temporary file that ``EGOREAR_IMAGENET_RESNET18`` names for
+these phases only):
+
+  8. stage 1 of the front and the back pair (``entry.build_stage1``): the
+     ImageNet leaves bitwise the file's and every other leaf the seeded
+     init's, b64 fp32 training with the yamls' schedule and clipping (the
+     loss must fall), ms/step, samples/s, peak memory and the device's idle
+     share (its busy time under torch.profiler over a few more steps against
+     the timed steps' ms/step), a checkpoint each;
+  9. one fp32 stage-2 step (256 px, b2) through the kernels vs the plain
+     versions from the same state, as phase 5 (4 + 4 lazy launches);
+  10. stage 2 as users train it (``entry.build_stage2``): the ImageNet init,
+     then both stage-1 checkpoints grafted (the grafted leaves bitwise the
+     checkpoints', every other leaf unchanged), b64 fp32 training in which
+     every step launches the lazy forward and backward 4 times each and the
+     per-head kernels never, the same numbers as phase 8, a kept step (its
+     4 + 4 launches at kernel batch 256 held against the plain versions), a
+     checkpoint;
+  11. the stage-2 checkpoint grafted into stage 3 (``entry.build_train``):
+     ``heatmap_estimator`` bitwise the checkpoint's, one b32 fp32 kept step
+     with 7 + 7 lazy launches (each held against its plain version) and a
+     finite loss.
 
 Every phase that drives the main path sets the launch counts of all four
 kernels to 0 just before it and reads them just after.
@@ -72,9 +99,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -105,6 +134,7 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TRAIN_GRAD_TOL, TRAIN_GRAD_FLOOR, TRAIN_BATCH = 1e-3, 1e-8, 2
 TRAIN_STAT_TOL = 1e-4  # BN running stats after the step, max-abs
 TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 32, 3, 10
+PROFILED_STEPS = 3  # steps under torch.profiler after a timed run
 TRAIN_SIZE, TRAIN_DEVICE = 256, "cuda"  # a CPU rehearsal may shrink them
 
 # Per-head sampling (the reference order) at the flagship, batch 16: value
@@ -149,12 +179,17 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
 
 
+def kernel_names(lazy: bool) -> tuple:
+    """The forward and the backward kernel of one computation order."""
+    return (("lazy_deform_sample", "lazy_deform_sample_bwd") if lazy
+            else ("deform_sample", "deform_sample_bwd"))
+
+
 def expected_launches(lazy: bool, forwards: int, backwards: int) -> dict:
     """Launch counts of a main-path run of ``forwards`` forwards and
     ``backwards`` backwards in one computation order: the other order's
     kernels never launch."""
-    fwd, bwd = (("lazy_deform_sample", "lazy_deform_sample_bwd") if lazy
-                else ("deform_sample", "deform_sample_bwd"))
+    fwd, bwd = kernel_names(lazy)
     want = dict.fromkeys(KERNELS, 0)
     want[fwd] = forwards * LAUNCHES_PER_FORWARD
     want[bwd] = backwards * LAUNCHES_PER_FORWARD
@@ -811,22 +846,24 @@ def perturb_(model, img, gen):
 
     Sampling offsets and attention weights get query-dependent kernels (a few
     pixels of spread), the refiners' position tables random values, the 3D
-    proposal a random pose spread over the rig's field of view, and the
-    initial heatmap heads a bias that puts the median peak at the 0.5
-    validity threshold, so about half the 2D anchors are valid.
+    proposal (of the cascade; ``model`` may be the stage-2 network alone) a
+    random pose spread over the rig's field of view, and the initial heatmap
+    heads a bias that puts the median peak at the 0.5 validity threshold, so
+    about half the 2D anchors are valid.
     """
     for m in deform_attns(model):
         fan_in = m.sampling_offsets.weight.shape[1]
         m.sampling_offsets.weight.normal_(0.0, 2.0 * fan_in**-0.5, generator=gen)
         m.attention_weights.weight.normal_(0.0, fan_in**-0.5, generator=gen)
-    hm_net = model.heatmap_estimator
+    hm_net = getattr(model, "heatmap_estimator", model)
     for r in hm_net.refiners:
         r.frame_feat_multi_view_pos_embed.normal_(0.0, 0.5, generator=gen)
-    bias = model.pose3d_estimator.mlp_pred_out.bias
-    u = torch.rand(bias.numel() // 3, 3, generator=gen, device=bias.device)
-    lo = torch.tensor([-60.0, -60.0, -20.0], device=bias.device)
-    hi = torch.tensor([60.0, 60.0, 80.0], device=bias.device)
-    bias.copy_((lo + u * (hi - lo)).reshape(-1))
+    if hm_net is not model:
+        bias = model.pose3d_estimator.mlp_pred_out.bias
+        u = torch.rand(bias.numel() // 3, 3, generator=gen, device=bias.device)
+        lo = torch.tensor([-60.0, -60.0, -20.0], device=bias.device)
+        hi = torch.tensor([60.0, 60.0, 80.0], device=bias.device)
+        bias.copy_((lo + u * (hi - lo)).reshape(-1))
     _, _, (feat_f, feat_b) = hm_net._estimator_features(img)
     peaks = hm_net._heatmaps_from_feat(feat_f, feat_b).amax(dim=(-2, -1))
     shift = 0.5 - float(peaks.median())
@@ -963,27 +1000,48 @@ def kernel_time(events, name: str) -> float:
     return sum(e.self_device_time_total for e in events if pattern.search(e.key))
 
 
+def profiled(fn, n: int):
+    """torch.profiler over ``n`` calls of ``fn``: the profiler's events and
+    the device's busy time per call in ms (0 when it saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return events, sum(e.self_device_time_total for e in events) / n / 1e3
+
+
+def _device_table(events, busy, title, path, mode):
+    """Append (or, with ``mode`` "w", write) the profiler's table by device
+    time to ``path``, when the profiler saw device time."""
+    if busy > 0:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, mode) as f:
+            f.write(f"{title}\n")
+            f.write(events.table(sort_by="self_device_time_total", row_limit=40))
+            f.write("\n")
+
+
 def profile_serving(model, rig, img, card, path: str, lazy: bool = True,
                     n: int = 3):
     """Device time by kernel over ``n`` serving forwards (torch.profiler);
     the table goes to ``path`` (the lazy order's first, then appended)."""
-    from torch.profiler import ProfilerActivity, profile
-
     tag = order_tag(4, lazy)
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            model(img, rig)
-        torch.cuda.synchronize()
-    events, total = _device_table(prof, f"{card} serving {tag}", path,
-                                  "w" if lazy else "a")
-    if total <= 0:
+    with torch.inference_mode():
+        events, busy = profiled(lambda: model(img, rig), n)
+    _device_table(events, busy, f"{card} serving {tag}", path,
+                  "w" if lazy else "a")
+    if busy <= 0:
         print(f"{tag} profile: the profiler saw no device time | {card}")
         return
     name = "lazy_deform_sample" if lazy else "deform_sample"
-    t = kernel_time(events, name)
-    print(f"{tag} profile over {n} forwards: device busy {total / n / 1e3:.3f} "
-          f"ms/forward, {name} {t / n / 1e3:.4f} ms/forward "
-          f"({100 * t / total:.2f}% of device time) | {card}", flush=True)
+    t = kernel_time(events, name) / n / 1e3
+    print(f"{tag} profile over {n} forwards: device busy {busy:.3f} "
+          f"ms/forward, {name} {t:.4f} ms/forward "
+          f"({100 * t / busy:.2f}% of device time) | {card}", flush=True)
 
 
 def train_batch(B, size, gen, dtype=torch.float32):
@@ -1072,38 +1130,15 @@ def pinned_relus(masks: list, flips: list | None = None):
                              f"{len(masks)}")
 
 
-def phase_train_check(card, lazy: bool = True):
-    """One fp32 train step through the plain versions vs one through the
-    kernels, from the same state on the same batch, the kernel step's ReLUs
-    pinned to the plain step's masks (:func:`pinned_relus`)."""
-    import copy
-
-    from egorear_tpu_torch import entry
-    from egorear_tpu_torch.ops.heatmap import argmax_2d
-
-    task, trainer = entry.build_train((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE, "32",
-                                      seed=0, steps_per_epoch=1,
-                                      warmup_iters=1, lazy_deform=lazy)
-    model = task.model
-    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(4)
-    batch = train_batch(TRAIN_BATCH, TRAIN_SIZE, gen)
-    # Perturb in train mode, so that the median initial heatmap peak of the
-    # training forward (BN on batch statistics) sits at the threshold.
-    model.train()
-    stats = {k: v.clone() for k, v in model.state_dict().items()
-             if "running" in k or "num_batches" in k}
-    perturb_(model, batch["img"], gen)
-    model.load_state_dict(stats, strict=False)
-    start = copy.deepcopy(model.state_dict())
-    with torch.no_grad():
-        preds, hms = task.forward(batch["img"])
-    model.load_state_dict(start)
-    valid_2d = float(argmax_2d(hms[0], 0.5, normalize=True)[2].float().mean())
-    valid_3d = float(task.rig.project(preds[0])[1].float().mean())
-    if not (0 < valid_2d < 1 and 0 < valid_3d < 1):
-        raise AssertionError(f"anchors not partly valid (2D {valid_2d}, 3D "
-                             f"{valid_3d}): the check would not see the kernel")
-
+def compare_kernel_step(model, trainer, batch, start, want_launches):
+    """One fp32 train step through the plain versions and one through the
+    kernels, from the state dict ``start`` on ``batch``, the kernel step's
+    ReLUs pinned to the plain step's masks (:func:`pinned_relus`); checks
+    the kernel step's launches against ``want_launches``, every leaf
+    gradient against TRAIN_GRAD_TOL of its scale (a leaf below the rounding
+    floor against the floor), the parameters against AdamW's bound and the
+    BN running stats against TRAIN_STAT_TOL. Returns both runs and the
+    worst numbers."""
     runs, masks, flips = {}, [], []
     for impl in ("plain", "kernel"):
         for m in deform_attns(model):
@@ -1124,17 +1159,15 @@ def phase_train_check(card, lazy: bool = True):
                    if "running" in k})
     for m in deform_attns(model):
         m.impl = "kernel"
-    if runs["kernel"]["launched"] != expected_launches(lazy, 1, 1):
+    if runs["kernel"]["launched"] != want_launches:
         raise AssertionError(f"kernel step launched {runs['kernel']['launched']}"
-                             f", expected {expected_launches(lazy, 1, 1)}")
+                             f", expected {want_launches}")
     if any(runs["plain"]["launched"].values()):
         raise AssertionError("the plain step launched a kernel")
     kink = max((f[1] for f in flips), default=0.0)
     if not kink <= FWD_TOL[torch.float32]:
         raise AssertionError(f"a ReLU input {kink:.3e} of its call's scale from "
                              f"zero changed sides (tol {FWD_TOL[torch.float32]:g})")
-    fwd_name, bwd_name = (("lazy_deform_sample", "lazy_deform_sample_bwd") if lazy
-                          else ("deform_sample", "deform_sample_bwd"))
     k, pl = runs["kernel"], runs["plain"]
     # A leaf whose largest gradient is below TRAIN_GRAD_FLOOR of the model's
     # largest is zero in exact arithmetic (the key-projection biases, to
@@ -1167,115 +1200,552 @@ def phase_train_check(card, lazy: bool = True):
                    for n, v in pl["stats"].items())
     if not stat_err <= TRAIN_STAT_TOL:
         raise AssertionError(f"BN running stats differ by {stat_err:.3e}")
+    return dict(kernel=k, plain=pl, flips=flips, masks=masks, kink=kink,
+                floor=floor, n_floor=n_floor, worst_grad=worst_grad,
+                worst_name=worst_name, worst_tight=worst_tight,
+                worst_loose=worst_loose, stat_err=stat_err)
+
+
+def perturb_train_(model, batch, gen) -> None:
+    """:func:`perturb_` in train mode, so that the median initial heatmap
+    peak of the training forward (BN on batch statistics) sits at the
+    threshold; the BN running stats stay as they were."""
+    model.train()
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if "running" in k or "num_batches" in k}
+    perturb_(model, batch["img"], gen)
+    model.load_state_dict(stats, strict=False)
+
+
+def perturbed_start(task, batch, gen):
+    """The task's model moved off its init (:func:`perturb_train_`): the
+    state dict that compared steps start from and the model's no-grad
+    forward on the batch."""
+    import copy
+
+    model = task.model
+    perturb_train_(model, batch, gen)
+    start = copy.deepcopy(model.state_dict())
+    with torch.no_grad():
+        out = task.forward(batch["img"])
+    model.load_state_dict(start)
+    return start, out
+
+
+def partly_valid(shares: dict) -> str:
+    """Fails unless every anchor share lies strictly between 0 and 1: a
+    kernel-vs-plain step must cross both paths of the sampling."""
+    if not all(0 < v < 1 for v in shares.values()):
+        raise AssertionError(f"anchors not partly valid ({shares}): the check "
+                             f"would not see the kernel")
+    return " ".join(f"{k} {v:.3f}" for k, v in shares.items())
+
+
+def kernel_step_text(r: dict, lazy: bool) -> str:
+    """What :func:`compare_kernel_step` measured, for a phase's line."""
+    k, pl = r["kernel"], r["plain"]
+    fwd, bwd = kernel_names(lazy)
+    return (f"loss {k['loss']:.6f} vs {pl['loss']:.6f}; worst leaf gradient "
+            f"max-abs/scale {r['worst_grad']:.3e} ({r['worst_name']}, tol "
+            f"{TRAIN_GRAD_TOL:g}; {r['n_floor']} leaves below the rounding "
+            f"floor {r['floor']:.1e}); params after the step "
+            f"{r['worst_tight']:.3e} where the gradient is determined, "
+            f"{r['worst_loose']:.3e} elsewhere (Adam bound 2 lr = "
+            f"{2 * pl['lr']:.1e}); BN running stats {r['stat_err']:.3e} (tol "
+            f"{TRAIN_STAT_TOL:g}); ReLU inputs pinned across the kink "
+            f"{sum(f[0] for f in r['flips'])} in {len(r['flips'])} of "
+            f"{len(r['masks'])} calls (largest {r['kink']:.3e} of its call's "
+            f"scale, tol {FWD_TOL[torch.float32]:g}); launches (fwd, bwd) "
+            f"({k['launched'][fwd]}, {k['launched'][bwd]})")
+
+
+def phase_train_check(card, lazy: bool = True):
+    """One fp32 train step through the plain versions vs one through the
+    kernels, from the same state on the same batch, the kernel step's ReLUs
+    pinned to the plain step's masks (:func:`pinned_relus`)."""
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.ops.heatmap import argmax_2d
+
+    task, trainer = entry.build_train((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE, "32",
+                                      seed=0, steps_per_epoch=1, warmup_iters=1,
+                                      lazy_deform=lazy, imagenet=False)
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(4)
+    batch = train_batch(TRAIN_BATCH, TRAIN_SIZE, gen)
+    start, (preds, hms) = perturbed_start(task, batch, gen)
+    anchors = partly_valid({
+        "2D": float(argmax_2d(hms[0], 0.5, normalize=True)[2].float().mean()),
+        "3D": float(task.rig.project(preds[0])[1].float().mean())})
+    r = compare_kernel_step(task.model, trainer, batch, start,
+                            expected_launches(lazy, 1, 1))
     print(f"{order_tag(5, lazy)} flagship {TRAIN_SIZE}px B={TRAIN_BATCH} fp32 "
           f"{'lazy' if lazy else 'reference'} order train step kernel vs plain: "
-          f"loss {k['loss']:.6f} vs {pl['loss']:.6f}; worst leaf gradient "
-          f"max-abs/scale {worst_grad:.3e} ({worst_name}, tol "
-          f"{TRAIN_GRAD_TOL:g}; {n_floor} leaves below the rounding floor "
-          f"{floor:.1e}); params after the step {worst_tight:.3e} where "
-          f"the gradient is determined, {worst_loose:.3e} elsewhere (Adam "
-          f"bound 2 lr = {2 * pl['lr']:.1e}); BN running stats "
-          f"{stat_err:.3e} (tol {TRAIN_STAT_TOL:g}); ReLU inputs pinned across "
-          f"the kink {sum(f[0] for f in flips)} in {len(flips)} of {len(masks)} "
-          f"calls (largest {kink:.3e} of its call's scale, tol "
-          f"{FWD_TOL[torch.float32]:g}); launches (fwd, bwd) "
-          f"({k['launched'][fwd_name]}, {k['launched'][bwd_name]}); valid "
-          f"anchors 2D {valid_2d:.3f} 3D "
-          f"{valid_3d:.3f} | {card}", flush=True)
+          f"{kernel_step_text(r, lazy)}; valid anchors {anchors} | {card}",
+          flush=True)
+
+
+# The launch function behind each kernel's wrapper in
+# egorear_tpu_torch.ops.deform_attn (the autograd nodes look it up at every
+# call), and the names of its outputs.
+LAUNCHERS = {"lazy_deform_sample": "_forward_kernel",
+             "lazy_deform_sample_bwd": "_backward_kernel",
+             "deform_sample": "_sampling_kernel",
+             "deform_sample_bwd": "_sampling_backward_kernel"}
+OUTPUTS = {"lazy_deform_sample": ("s_feat", "s_pos", "s_one"),
+           "lazy_deform_sample_bwd": ("d_feat", "d_loc", "d_attn_w", "d_pos"),
+           "deform_sample": ("out",),
+           "deform_sample_bwd": ("d_value", "d_loc", "d_attn_w")}
+
+
+@contextlib.contextmanager
+def kept_kernel_calls(calls: list):
+    """Inside the block every kernel launch also appends (kernel, a copy of
+    its arguments, a copy of its outputs) to ``calls``; the launch is the
+    same call and counts as before. Copies, because an argument may be a
+    parameter that the optimizer then updates in place (the refiners' pos
+    tables) and an output may become a ``.grad`` that clipping scales; an
+    argument that several launches share is copied once."""
+    from egorear_tpu_torch.ops import deform_attn as da
+
+    launchers = {name: getattr(da, fn) for name, fn in LAUNCHERS.items()}
+    copies = {}  # id -> (tensor, copy): holding the tensor keeps its id unique
+
+    def copy_of(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if id(t) not in copies:
+            copies[id(t)] = (t, t.detach().clone())
+        return copies[id(t)][1]
+
+    def keep(name, launch):
+        def kept(*args):
+            out = launch(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            calls.append((name, tuple(copy_of(a) for a in args),
+                          tuple(o.detach().clone() if o is not None else None
+                                for o in outs)))
+            return out
+        return kept
+
+    for name, launch in launchers.items():
+        setattr(da, LAUNCHERS[name], keep(name, launch))
+    try:
+        yield
+    finally:
+        for name, launch in launchers.items():
+            setattr(da, LAUNCHERS[name], launch)
+
+
+def plain_call(name: str, args: tuple) -> tuple:
+    """The plain version of kernel ``name`` on the arguments its launch
+    took, in fp32 on the same (possibly bf16) inputs; outputs in the
+    kernel's order (:data:`OUTPUTS`)."""
+    from egorear_tpu_torch.ops import deform_attn as da
+
+    f32 = lambda t: t.float() if t is not None else None  # noqa: E731
+    if name == "lazy_deform_sample":
+        feat, loc, attn_w, pos, block = args
+        return da.lazy_deform_sample_plain(feat.float(), loc, attn_w, f32(pos),
+                                           block)
+    if name == "lazy_deform_sample_bwd":
+        feat, loc, attn_w, pos, block, g_feat, g_pos, g_one, need_feat, need_pos = args
+        return da.lazy_deform_sample_backward_plain(
+            feat.float(), loc, attn_w, f32(pos), block, g_feat.float(), f32(g_pos),
+            g_one.float(), need_feat, need_pos)
+    if name == "deform_sample":
+        value, loc, attn_w = args
+        return (da.deformable_sampling_plain(value.float(), loc, attn_w),)
+    value, loc, attn_w, g, need_value = args
+    return da.deformable_sampling_backward_plain(value.float(), loc, attn_w,
+                                                 g.float(), need_value)
+
+
+def call_shape(name: str, args: tuple) -> str:
+    """The shape of one launch, as the kernel phases print it."""
+    if name.startswith("lazy"):
+        feat, attn_w, pos = args[0], args[2], args[3]
+        B, Q, nh, P = attn_w.shape
+        side = int(feat.shape[1] ** 0.5)
+        text = (f"B={B} Q={Q} nh={nh} P={P} {side}x{side} Cin={feat.shape[2]} "
+                f"C={pos.shape[-1] if pos is not None else 0}")
+        return text + (f" d_feat={'yes' if args[8] else 'no'}"
+                       if name.endswith("_bwd") else "")
+    value, attn_w = args[0], args[2]
+    return (f"{'x'.join(str(n) for n in value.shape)} Q={attn_w.shape[1]} "
+            f"P={attn_w.shape[3]}")
+
+
+def hold_kept_calls(calls: list, tag: str, card: str) -> None:
+    """Each kept launch (:func:`kept_kernel_calls`) against its plain
+    version on the same inputs (:func:`plain_call`): every output within
+    FWD_TOL (forward kernels) or BWD_TOL (backward kernels) of its dtype
+    times that output's largest plain value. Prints one line per kernel,
+    shape and dtype; fails at the first output out of tolerance, and when
+    an output is zero in every launch of a line (the check would not see
+    the kernel)."""
+    worst = {}  # (name, shape, dtype) -> [launches, worst max-abs/scale, tol,
+    #                                   largest scale of each output]
+    for name, args, got in calls:
+        dtype, shape = args[0].dtype, call_shape(name, args)
+        tol = (BWD_TOL if name.endswith("_bwd") else FWD_TOL)[dtype]
+        want = plain_call(name, args)
+        row = worst.setdefault((name, shape, dtype), [0, 0.0, tol, {}])
+        row[0] += 1
+        for out, g, w in zip(OUTPUTS[name], got, want, strict=True):
+            if (g is None) != (w is None):
+                raise AssertionError(f"{tag} {name} {shape}: {out} from only one "
+                                     f"of kernel and plain version")
+            if w is None:
+                continue
+            scale = float(w.float().abs().max())
+            err = float((g.float() - w.float()).abs().max())
+            if not err <= tol * scale:
+                raise AssertionError(f"{tag} {name} {str(dtype)[6:]} {shape}: "
+                                     f"{out} max-abs {err:.3e} > {tol:g} x "
+                                     f"{scale:.3e}")
+            row[1] = max(row[1], err / scale if scale > 0 else 0.0)
+            row[3][out] = max(row[3].get(out, 0.0), scale)
+        del want
+    for (name, shape, dtype), (n, rel, tol, scales) in worst.items():
+        print(f"{tag} {name} {str(dtype)[6:]} {shape}: {n} launches of the "
+              f"step vs the plain version on their inputs, worst "
+              f"max-abs/scale {rel:.3e} (tol {tol:g}; largest plain value "
+              + ", ".join(f"{out} {v:.2e}" for out, v in scales.items())
+              + f") | {card}", flush=True)
+        zero = [out for out, v in scales.items() if not v > 0]
+        if zero:
+            raise AssertionError(f"{tag} {name} {shape}: {zero} zero in every "
+                                 f"launch: the check would not see the kernel")
+
+
+def kept_step(task, trainer, batch, gen, want: dict, tag: str, card: str) -> dict:
+    """One train step of the model moved off its init
+    (:func:`perturb_train_`: at the init the anchors are invalid and the
+    refiners' sampling gets no gradient), its launches counted from 0 (they
+    must equal ``want``) and kept, each then held against its plain version
+    at the shapes and on the values the step gave it
+    (:func:`hold_kept_calls`). Returns the step's metrics."""
+    perturb_train_(task.model, batch, gen)
+    calls = []
+    reset_launches()
+    with kept_kernel_calls(calls):
+        metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    if launched != want:
+        raise AssertionError(f"{tag} the step launched {launched}, expected {want}")
+    kept = {name: sum(c[0] == name for c in calls) for name in KERNELS}
+    if kept != launched:
+        raise AssertionError(f"{tag} kept {kept} of the launches {launched}")
+    hold_kept_calls(calls, tag, card)
+    return metrics
+
+
+def train_run(trainer, batch, loss_key: str, warmup: int, timed: int,
+              n_profiled: int = 0) -> dict:
+    """``warmup`` + ``timed`` steps on one fixed batch, the launch counts
+    from 0 over these, then ``n_profiled`` steps under torch.profiler
+    (:func:`profiled`). Fails unless the loss is finite and falls over the
+    timed steps."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = [trainer.train_step(batch)[loss_key] for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        losses.append(trainer.train_step(batch)[loss_key])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    launches = read_launches()
+    losses = [float(x) for x in losses]
+    first, last = losses[warmup], losses[-1]
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        raise AssertionError(f"loss not finite and falling: {losses}")
+    run = dict(ms=ms, first=first, last=last, launches=launches,
+               warmup=warmup, timed=timed, steps=warmup + timed,
+               peak=torch.cuda.max_memory_allocated() / 2**30,
+               profiled=n_profiled, events=None, busy=0.0)
+    if n_profiled:
+        run["events"], run["busy"] = profiled(lambda: trainer.train_step(batch),
+                                              n_profiled)
+    return run
+
+
+def run_line(run: dict, B: int, kernels: tuple = ()) -> str:
+    """A timed run (:func:`train_run`) for a phase's line: host-clock
+    ms/step and samples/s, peak memory, and when it was profiled the
+    device's busy time per step, its idle share against the timed steps'
+    own ms/step, and the time of ``kernels`` (all __global__ functions of
+    each source)."""
+    ms = run["ms"]
+    busy = ""
+    if run["profiled"] and run["busy"] <= 0:
+        busy = ", device busy not measured (the profiler saw no device time)"
+    elif run["profiled"]:
+        idle = 1 - run["busy"] / ms
+        busy = (f", device busy {run['busy']:.3f} ms/step over {run['profiled']} "
+                f"steps under the profiler: idle "
+                + (f"{100 * idle:.1f} %" if idle >= 0 else
+                   f"0 % (busy {-100 * idle:.1f} % above the timed step: "
+                   f"device-bound)")
+                + " of the timed step")
+        for name in kernels:
+            t = kernel_time(run["events"], name) / run["profiled"] / 1e3
+            busy += (f", {name}.cu {t:.4f} ms/step ({100 * t / run['busy']:.2f} "
+                     f"% of device time)")
+    return (f"{ms:.3f} ms/step (host clock, {run['timed']} steps after "
+            f"{run['warmup']} warm-up, one fixed batch), {B * 1e3 / ms:.2f} "
+            f"samples/s, peak {run['peak']:.2f} GiB{busy}; loss "
+            f"{run['first']:.4f} -> {run['last']:.4f}")
 
 
 def phase_train(card, profile: str | None, lazy: bool = True):
-    """Train the flagship as users would; returns the kernel launch counts
-    of the main path."""
+    """Train the flagship as users would, then hold one more step's kernel
+    launches against their plain versions (:func:`kept_step`); returns the
+    kernel launch counts of the main path."""
     from egorear_tpu_torch import entry
 
     # The flagship schedule as configured, warmup 500 included: without the
     # warmup, lr 1e-3 from step 1 overshoots on one fixed random batch (the
     # loss fell for 2 steps, then rose to 1.9x its start on the H100).
     task, trainer = entry.build_train((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE,
-                                      "bf16-mixed", seed=0,
-                                      steps_per_epoch=1000, lazy_deform=lazy)
+                                      "bf16-mixed", seed=0, steps_per_epoch=1000,
+                                      lazy_deform=lazy, imagenet=False)
     gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(5)
     batch = train_batch(TRAIN_B, TRAIN_SIZE, gen)
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    losses = []
-    for _ in range(TRAIN_WARMUP):
-        losses.append(trainer.train_step(batch)["loss_total"])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_TIMED):
-        losses.append(trainer.train_step(batch)["loss_total"])
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / TRAIN_TIMED
-    launches = read_launches()
-    steps = TRAIN_WARMUP + TRAIN_TIMED
+    run = train_run(trainer, batch, "loss_total", TRAIN_WARMUP, TRAIN_TIMED,
+                    PROFILED_STEPS if profile else 0)
+    launches, steps = run["launches"], run["steps"]
     want = expected_launches(lazy, steps, steps)
     if launches != want:
         raise AssertionError(f"{steps} train steps launched {launches}, "
                              f"expected {want}")
-    fwd_name, bwd_name = (("lazy_deform_sample", "lazy_deform_sample_bwd") if lazy
-                          else ("deform_sample", "deform_sample_bwd"))
-    losses = [float(x) for x in losses]
-    first, last = losses[TRAIN_WARMUP], losses[-1]  # over the timed steps
-    if not all(math.isfinite(x) for x in losses) or not last < first:
-        raise AssertionError(f"loss not finite and falling: {losses}")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"{order_tag(6, lazy)} train flagship {TRAIN_SIZE}px bf16-mixed "
-          f"{'lazy' if lazy else 'reference'} order B={TRAIN_B}: "
-          f"{dt * 1e3:.3f} ms/step (host clock, {TRAIN_TIMED} steps after "
-          f"{TRAIN_WARMUP} warm-up, one fixed batch, lr {trainer.lr:g} warmed "
-          f"over {trainer.warmup_iters} steps), {TRAIN_B / dt:.2f} samples/s, "
-          f"peak {peak_gib:.2f} GiB; "
-          f"loss {first:.4f} -> {last:.4f}; launches {fwd_name} "
-          f"{launches[fwd_name]}, {bwd_name} {launches[bwd_name]} = {steps} x "
+    tag = order_tag(6, lazy)
+    fwd, bwd = kernel_names(lazy)
+    print(f"{tag} train flagship {TRAIN_SIZE}px bf16-mixed "
+          f"{'lazy' if lazy else 'reference'} order B={TRAIN_B} (lr "
+          f"{trainer.lr:g} warmed over {trainer.warmup_iters} steps): "
+          f"{run_line(run, TRAIN_B, (fwd, bwd))}; launches {fwd} "
+          f"{launches[fwd]}, {bwd} {launches[bwd]} = {steps} x "
           f"{LAUNCHES_PER_FORWARD}, other kernels 0 | {card}", flush=True)
     if profile:
-        profile_train(trainer, batch, card, profile, lazy)
+        _device_table(run["events"], run["busy"], f"{card} training {tag}",
+                      profile, "a")
+    kept_step(task, trainer, batch, gen, expected_launches(lazy, 1, 1), tag, card)
     return launches
 
 
-def _device_table(prof, card, path, mode):
-    events = prof.key_averages()
-    total = sum(e.self_device_time_total for e in events)
-    if total > 0:
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        with open(path, mode) as f:
-            f.write(f"{card}\n")
-            f.write(events.table(sort_by="self_device_time_total", row_limit=40))
-            f.write("\n")
-    return events, total
+# Stages 1 and 2 as configs/ego4view_syn_heatmap_*.yaml train them: 256 px,
+# batch 64, fp32 (TF32 off, as every phase here), the yamls' schedule; then
+# one b32 fp32 stage-3 step after the stage-2 graft. Each timed run is
+# followed by a few steps under torch.profiler for the device's busy time.
+STAGE_B, STAGE3_B = 64, 32
+IMAGENET_ENV = "EGOREAR_IMAGENET_RESNET18"
+GRAFT_KEYS = {"front": "heatmap_estimator_pretrained_stereo_front",
+              "back": "heatmap_estimator_pretrained_stereo_back"}
 
 
-def profile_train(trainer, batch, card, path: str, lazy: bool = True,
-                  n: int = 3):
-    """Device time by kernel over ``n`` train steps (torch.profiler), and the
-    device's idle share against the host clock; the table is appended to
-    ``path``."""
-    from torch.profiler import ProfilerActivity, profile
+@contextlib.contextmanager
+def env_var(name: str, value: str):
+    """``os.environ[name] = value`` inside the block only."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
 
-    tag = order_tag(6, lazy)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            trainer.train_step(batch)
-        torch.cuda.synchronize()
-    host = (time.perf_counter() - t0) / n * 1e3
-    events, total = _device_table(prof, f"{card} training {tag}", path, "a")
-    if total <= 0:
-        print(f"{tag} profile: the profiler saw no device time | {card}")
-        return
-    busy = total / n / 1e3
-    names = (("lazy_deform_sample", "lazy_deform_sample_bwd") if lazy
-             else ("deform_sample", "deform_sample_bwd"))
-    fwd, bwd = (kernel_time(events, name) / n / 1e3 for name in names)
-    print(f"{tag} profile over {n} train steps: host {host:.3f} ms/step under "
-          f"the profiler, device busy {busy:.3f} ms/step (idle "
-          f"{100 * (1 - busy / host):.1f} %); {names[0]}.cu "
-          f"{fwd:.4f} ms/step, {names[1]}.cu (all its kernels) {bwd:.4f} "
-          f"ms/step ({100 * (fwd + bwd) / busy:.2f} % of device time) | {card}",
+
+def write_imagenet_weights(path: str, seed: int = 0) -> None:
+    """Seeded random ResNet-18 weights in torchvision's key layout (with its
+    classifier and BN counters), saved as a ``.pth`` state dict: the stand-in
+    for the ImageNet weights, which the repository does not hold."""
+    from egorear_tpu_torch.models.backbone import ResNet18
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for key, v in ResNet18().state_dict().items():
+        leaf = key.rsplit(".", 1)[1]
+        k = re.sub(r"^layer(\d)_(\d)\.", r"layer\1.\2.", key)
+        k = k.replace("downsample_conv", "downsample.0").replace("downsample_bn",
+                                                                 "downsample.1")
+        if leaf == "num_batches_tracked":
+            sd[k] = torch.tensor(0)
+        elif leaf == "running_var":
+            sd[k] = 0.5 + torch.rand(v.shape, generator=gen)
+        elif v.dim() == 4:  # conv kernels: LeCun normal
+            sd[k] = torch.randn(v.shape, generator=gen) * v[0].numel() ** -0.5
+        else:  # BN: scale near 1, shift and running mean near 0
+            sd[k] = (torch.randn(v.shape, generator=gen) * 0.1
+                     + (1.0 if leaf == "weight" else 0.0))
+    sd["fc.weight"] = torch.randn(1000, 512, generator=gen) * 512 ** -0.5
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+
+
+def stage_batch(B, views, size, gen):
+    """A seeded stage-1/2 batch: ``views`` views of ``size`` px and 15-joint
+    per-view heatmaps at 1/4 resolution."""
+    h = size // 4
+    return {"img": torch.randn(B, views, 3, size, size, generator=gen,
+                               device=TRAIN_DEVICE),
+            "gt_heatmap": torch.rand(B, views, 15, h, h, generator=gen,
+                                     device=TRAIN_DEVICE)}
+
+
+def phase_stage1(card, workdir: str, weights: dict) -> dict:
+    """Stage 1 of each stereo pair as the yamls train it: the ImageNet
+    initialisation checked leaf by leaf, b64 fp32 training, a checkpoint.
+    Returns the checkpoint of each pair."""
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.train import checkpoint
+
+    ckpts = {}
+    for pair, seed in (("front", 1), ("back", 2)):
+        task, trainer = entry.build_stage1(TRAIN_DEVICE, seed=seed,
+                                           steps_per_epoch=1000)
+        seeded, _ = entry.build_stage1(TRAIN_DEVICE, seed=seed, steps_per_epoch=1000,
+                                       imagenet=False)
+        base = seeded.model.state_dict()
+        n_resnet = 0
+        for k, v in task.model.state_dict().items():
+            if k.startswith("encoder.resnet.") and "num_batches" not in k:
+                want = weights[k[len("encoder.resnet."):]]
+                n_resnet += 1
+            else:
+                want = base[k]
+            if not torch.equal(v, want.to(v.device)):
+                raise AssertionError(f"stage 1 {pair}: {k} is not the "
+                                     f"{'ImageNet file' if 'resnet' in k else 'seeded init'}'s")
+        if n_resnet != len(weights):
+            raise AssertionError(f"{n_resnet} ImageNet leaves, the file has {len(weights)}")
+        gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(10 + seed)
+        run = train_run(trainer, stage_batch(STAGE_B, 2, TRAIN_SIZE, gen),
+                        "heatmap_loss", TRAIN_WARMUP, TRAIN_TIMED, PROFILED_STEPS)
+        if any(run["launches"].values()):
+            raise AssertionError(f"stage 1 launched a sampling kernel: {run['launches']}")
+        ckpts[pair] = checkpoint.save(os.path.join(workdir, f"stage1_{pair}"), 0,
+                                      trainer.state_dict())
+        print(f"[8] stage 1 stereo {pair} {TRAIN_SIZE}px B={STAGE_B} fp32: "
+              f"ImageNet init {n_resnet} resnet leaves bitwise the file's, the "
+              f"FPN and head the seeded init's; {run_line(run, STAGE_B)}; "
+              f"checkpoint saved | {card}", flush=True)
+    return ckpts
+
+
+def stage2_launches(steps: int) -> dict:
+    """Launch counts of ``steps`` stage-2 steps: the lazy forward and its
+    backward once per refiner (4 views, one layer), nothing else."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["lazy_deform_sample"] = want["lazy_deform_sample_bwd"] = steps * LAUNCHES_MVFEX
+    return want
+
+
+def phase_stage2_check(card):
+    """One fp32 stage-2 step (256 px, b2) through the kernels vs one through
+    the plain versions from the same state, ReLUs pinned as in phase 5."""
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.ops.heatmap import argmax_2d
+
+    task, trainer = entry.build_stage2((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE,
+                                       seed=0, steps_per_epoch=1, warmup_iters=1,
+                                       imagenet=False)
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(6)
+    batch = stage_batch(TRAIN_BATCH, 4, TRAIN_SIZE, gen)
+    start, (hms, _) = perturbed_start(task, batch, gen)
+    anchors = partly_valid({
+        "2D": float(argmax_2d(hms[0], 0.5, normalize=True)[2].float().mean())})
+    r = compare_kernel_step(task.model, trainer, batch, start, stage2_launches(1))
+    print(f"[9] stage 2 {TRAIN_SIZE}px B={TRAIN_BATCH} fp32 train step kernel vs "
+          f"plain: {kernel_step_text(r, True)}; valid anchors {anchors} | {card}",
           flush=True)
+
+
+def phase_stage2(card, workdir: str, stage1: dict):
+    """Stage 2 as the yaml trains it: the ImageNet initialisation, then both
+    stage-1 checkpoints grafted (checked leaf by leaf), b64 fp32 training
+    with 4 + 4 lazy launches a step, one more step whose launches are held
+    against their plain versions at B = 256 (:func:`kept_step`), a
+    checkpoint. Returns the checkpoint and the launch counts."""
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.train import checkpoint
+
+    task, trainer = entry.build_stage2((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE,
+                                       seed=3, steps_per_epoch=1000)
+    before = {k: v.clone() for k, v in task.model.state_dict().items()}
+    done = checkpoint.apply_pretrained(
+        task.model, task.name, {GRAFT_KEYS[p]: stage1[p] for p in ("front", "back")})
+    if done != [GRAFT_KEYS["front"], GRAFT_KEYS["back"]]:
+        raise AssertionError(f"grafted {done}")
+    after = task.model.state_dict()
+    n_grafted = 0
+    for pair in ("front", "back"):
+        saved = checkpoint.restore(stage1[pair], map_location=TRAIN_DEVICE)["model"]
+        got = checkpoint.sub_state(after, f"heatmap_estimator_stereo_{pair}")
+        if sorted(got) != sorted(k for k in saved if not k.startswith("conv_heatmap.")):
+            raise AssertionError(f"stage-2 {pair} estimator keys differ from the "
+                                 f"stage-1 checkpoint's")
+        for k, v in got.items():
+            if not torch.equal(v, saved[k]):
+                raise AssertionError(f"grafted {pair} {k} differs from the checkpoint")
+        n_grafted += len(got)
+    for k, v in after.items():
+        if not k.startswith("heatmap_estimator_stereo_") and not torch.equal(v, before[k]):
+            raise AssertionError(f"the graft changed {k}")
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(13)
+    batch = stage_batch(STAGE_B, 4, TRAIN_SIZE, gen)
+    run = train_run(trainer, batch, "loss_total", TRAIN_WARMUP, TRAIN_TIMED,
+                    PROFILED_STEPS)
+    want = stage2_launches(run["steps"])
+    if run["launches"] != want:
+        raise AssertionError(f"{run['steps']} stage-2 steps launched "
+                             f"{run['launches']}, expected {want}")
+    print(f"[10] stage 2 {TRAIN_SIZE}px B={STAGE_B} fp32 (kernel batch "
+          f"{4 * STAGE_B}): ImageNet init, then both stage-1 checkpoints grafted "
+          f"({n_grafted} leaves bitwise, every other leaf unchanged); "
+          f"{run_line(run, STAGE_B, kernel_names(True))}; launches "
+          f"lazy_deform_sample {run['launches']['lazy_deform_sample']}, "
+          f"lazy_deform_sample_bwd {run['launches']['lazy_deform_sample_bwd']} = "
+          f"{run['steps']} x {LAUNCHES_MVFEX}, per-head kernels 0; checkpoint "
+          f"saved | {card}", flush=True)
+    ckpt = checkpoint.save(os.path.join(workdir, "stage2"), 0, trainer.state_dict())
+    kept_step(task, trainer, batch, gen, stage2_launches(1), "[10]", card)
+    return ckpt, run["launches"]
+
+
+def phase_stage3_graft(card, stage2: str):
+    """The stage-2 checkpoint grafted into stage 3 (ImageNet init first, as
+    the pose3d yaml asks), checked leaf by leaf; one b32 fp32 step with 7 + 7
+    launches, each held against its plain version (:func:`kept_step`), and
+    a finite loss."""
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.train import checkpoint
+
+    task, trainer = entry.build_train(
+        (TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE, "32", seed=4, steps_per_epoch=1000,
+        pretrained={"heatmap_estimator_mvf_pretrained": stage2})
+    saved = checkpoint.restore(stage2, map_location=TRAIN_DEVICE)["model"]
+    got = checkpoint.sub_state(task.model.state_dict(), "heatmap_estimator")
+    if sorted(got) != sorted(saved):
+        raise AssertionError("stage-3 heatmap_estimator keys differ from the "
+                             "stage-2 checkpoint's")
+    for k, v in got.items():
+        if not torch.equal(v, saved[k]):
+            raise AssertionError(f"grafted heatmap_estimator.{k} differs")
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(14)
+    batch = train_batch(STAGE3_B, TRAIN_SIZE, gen)
+    want = expected_launches(True, 1, 1)
+    loss = float(kept_step(task, trainer, batch, gen, want, "[11]",
+                           card)["loss_total"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"stage-3 loss {loss}")
+    print(f"[11] stage 3 {TRAIN_SIZE}px B={STAGE3_B} fp32 from the stage-2 "
+          f"checkpoint: heatmap_estimator {len(got)} leaves bitwise the "
+          f"checkpoint's; one step, loss {loss:.4f}, launches lazy_deform_sample "
+          f"{want['lazy_deform_sample']}, lazy_deform_sample_bwd "
+          f"{want['lazy_deform_sample_bwd']} | {card}", flush=True)
 
 
 def main() -> int:
@@ -1328,13 +1798,30 @@ def main() -> int:
         serve[lazy] = timed(f"4{b}", phase_serve, card, args.profile, lazy)
         timed(f"5{b}", phase_train_check, card, lazy)
         train[lazy] = timed(f"6{b}", phase_train, card, args.profile, lazy)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        weights_path = os.path.join(workdir, "resnet18-seeded.pth")
+        write_imagenet_weights(weights_path)
+        with env_var(IMAGENET_ENV, weights_path):
+            from egorear_tpu_torch.train.imagenet import load_imagenet_resnet18
+
+            weights = load_imagenet_resnet18()
+            stage1 = timed("8", phase_stage1, card, workdir, weights)
+            timed("9", phase_stage2_check, card)
+            stage2, stage2_launched = timed("10", phase_stage2, card, workdir, stage1)
+            timed("11", phase_stage3_graft, card, stage2)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     print(f"[7] main-path launches: serving forward lazy_deform_sample "
           f"{serve[True]['lazy_deform_sample']}, deform_sample "
           f"{serve[False]['deform_sample']}; training lazy_deform_sample "
           f"{train[True]['lazy_deform_sample']}, lazy_deform_sample_bwd "
           f"{train[True]['lazy_deform_sample_bwd']}, deform_sample "
           f"{train[False]['deform_sample']}, deform_sample_bwd "
-          f"{train[False]['deform_sample_bwd']} | {card}", flush=True)
+          f"{train[False]['deform_sample_bwd']}; stage-2 training "
+          f"lazy_deform_sample {stage2_launched['lazy_deform_sample']}, "
+          f"lazy_deform_sample_bwd {stage2_launched['lazy_deform_sample_bwd']} "
+          f"| {card}", flush=True)
     print("[7] seconds by phase: "
           + " ".join(f"{k}={v:.1f}" for k, v in seconds.items())
           + f"; total {time.perf_counter() - t0:.1f} | {card}", flush=True)

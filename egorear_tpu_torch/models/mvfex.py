@@ -6,7 +6,8 @@ every view's features, in the lazy order (``lazy_deform``, the flagship:
 raw features sampled, projected after) or the reference order (the memory
 materialised on the grid); the conv-stack heatmap heads
 (``use_1by1_conv`` off); refinement from the predicted initial heatmaps
-(``use_pred_heatmap_init``). Every other branch raises NotImplementedError.
+(``use_pred_heatmap_init``, stage 3) or from the initial heads' own output
+(stage 2). Every other branch raises NotImplementedError.
 
 Layout: NCHW maps; multi-view stacks folded VIEW-MAJOR (index ``v * B + b``),
 so the per-view position tables are matched to the batch in block mode.
@@ -284,8 +285,6 @@ class HeatmapMVFexNet(nn.Module):
                                       f"4-view rig is ported")
         if cfg.mvf.use_1by1_conv:
             raise NotImplementedError("use_1by1_conv is not ported")
-        if not cfg.use_pred_heatmap_init:
-            raise NotImplementedError("use_pred_heatmap_init: false is not ported")
         self.cfg = cfg
         enc = cfg.encoder
         V = cfg.num_views
@@ -333,21 +332,31 @@ class HeatmapMVFexNet(nn.Module):
         return pts2d, valid
 
     def forward(self, img):
-        """img (B, V, 3, H, W)."""
+        """img (B, V, 3, H, W).
+
+        The detach policy of the JAX package: with ``full_training`` off the
+        backbones get no gradient (they run without autograd; train-mode BN
+        still updates their running stats). With ``use_pred_heatmap_init``
+        the initial heads see detached features and the refiners detached
+        initial heatmaps; without it (stage 2 as configured) the refiners'
+        gradient reaches the initial heads through the heatmaps.
+        """
         cfg = self.cfg
         B, V = img.shape[:2]
         if V != cfg.num_views:
             raise ValueError(f"expected {cfg.num_views} views, got {V}")
-        feat_init, bfb_init, (feat_f, feat_b) = self._estimator_features(img)
-        if not cfg.full_training:
-            feat_init, bfb_init = feat_init.detach(), bfb_init.detach()
-            feat_f, feat_b = feat_f.detach(), feat_b.detach()
-        hm_init = self._heatmaps_from_feat(feat_f.detach(), feat_b.detach())
-        hm_for_refine = hm_init.detach()
-        if cfg.no_detach_feat_init:
-            feat, bfb = feat_init, bfb_init
+        with torch.set_grad_enabled(cfg.full_training and torch.is_grad_enabled()):
+            feat_init, bfb_init, (feat_f, feat_b) = self._estimator_features(img)
+        if cfg.use_pred_heatmap_init:
+            hm_init = self._heatmaps_from_feat(feat_f.detach(), feat_b.detach())
+            hm_for_refine = hm_init.detach()
+            if cfg.no_detach_feat_init:
+                feat, bfb = feat_init, bfb_init
+            else:
+                feat, bfb = feat_init.detach(), bfb_init.detach()
         else:
-            feat, bfb = feat_init.detach(), bfb_init.detach()
+            hm_init = self._heatmaps_from_feat(feat_f, feat_b)
+            hm_for_refine, feat, bfb = hm_init, feat_init, bfb_init
 
         anchors_2d, anchors_valid = self.get_anchors_2d(hm_init)
         tokens = to_tokens(feat)  # shared by every refiner's sampling

@@ -148,6 +148,12 @@ class EgoRearNet(nn.Module):
         if cfg.camera_model != "ego4view_syn":
             raise NotImplementedError(f"camera model {cfg.camera_model!r}: "
                                       f"only ego4view_syn is ported")
+        if not cfg.heatmap_mvf.use_pred_heatmap_init:
+            # The stage-2 network takes this branch; the cascade's lifting
+            # on the refined features is not held to the JAX package yet
+            # (every shipped stage-3 config sets the flag).
+            raise NotImplementedError("stage 3 with use_pred_heatmap_init: "
+                                      "false is not ported")
         self.cfg = cfg
         self.heatmap_estimator = HeatmapMVFexNet(cfg.heatmap_mvf)
         self.pose3d_estimator = Pose3DLifter(

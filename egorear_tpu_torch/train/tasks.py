@@ -1,8 +1,19 @@
-"""Training tasks: model + loss + eval metrics (the JAX package's
-``train/tasks.py``). Ported: the stage-3 :class:`Pose3DTask` for the
-synthetic rig, with the loss helpers and the pose metric suite. Metric names
-follow the JAX package (``mpjpe_loss_{i}``, ``heatmap_loss_{i}``,
-``loss_total``; ``{prefix}_mpjpe`` ...).
+"""Training tasks: model + loss + eval metrics for the three training stages
+(the JAX package's ``train/tasks.py``): :class:`HeatmapTask` (stage 1, one
+stereo pair), :class:`MVFexTask` (stage 2, the 4-view refinement) and
+:class:`Pose3DTask` (stage 3, the cascade on the synthetic rig), with the
+loss helpers and the heatmap and pose metric suites. Metric names follow the
+JAX package (``heatmap_loss``, ``heatmap_loss_{i}``, ``mpjpe_loss_{i}``,
+``loss_total``; ``{prefix}_mpjpe``, ``{prefix}_mse_heatmap`` ...).
+
+Every task builds its model with random weights from ``seed``, grafts the
+ImageNet ResNet-18 into its backbones when the config sets
+``use_imagenet_pretrain``, and only then moves it to ``device`` (``cuda``
+when None; without CUDA that raises). ``forward(img, params)`` and
+``loss(batch, params)`` run with the model's own parameters or, given
+``params``, with those in their place (``torch.func.functional_call``; the
+model's buffers, e.g. BN running stats, are used and updated); the model's
+train/eval mode is the caller's.
 """
 
 from __future__ import annotations
@@ -11,18 +22,26 @@ import copy
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn as nn
 from torch.func import functional_call
 
-from egorear_tpu_torch.models.configs import EgoRearNetCfg
+from egorear_tpu_torch.models.configs import EgoRearNetCfg, EncoderCfg, MVFexNetCfg
+from egorear_tpu_torch.models.heatmap_net import HeatmapNet
 from egorear_tpu_torch.models.layers import init_weights
+from egorear_tpu_torch.models.mvfex import HeatmapMVFexNet
 from egorear_tpu_torch.models.pose3d import EgoRearNet
 from egorear_tpu_torch.ops.camera import CameraRig
+from egorear_tpu_torch.ops.heatmap import argmax_2d
 from egorear_tpu_torch.ops.metrics import (
     auc_3d,
     mpjpe,
     mpjpe_loss,
     pck_3d,
     procrustes_align,
+)
+from egorear_tpu_torch.train.imagenet import (
+    graft_imagenet_backbones,
+    load_imagenet_resnet18,
 )
 
 CM2MM = 10.0
@@ -47,6 +66,27 @@ def _per_view_mse_sum(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return d2.mean(dim=(0,) + tuple(range(2, d2.dim()))).sum()
 
 
+def heatmap_eval_metrics(pred_hm: torch.Tensor, gt_hm: torch.Tensor,
+                         prefix: str) -> Metrics:
+    """Per-sample (B,) heatmap metrics of (B, V, J, h, w) maps: L1, L1 where
+    the ground truth is positive, MSE, and the MSE of the argmax points
+    (pixels) over the joints whose ground-truth peak reaches 1."""
+    B, V = pred_hm.shape[:2]
+    p = pred_hm.reshape(B, V, -1)
+    g = gt_hm.reshape(B, V, -1)
+    err = (p - g).abs()
+    pos = (g > 0).to(p.dtype)
+    pred_pts, _, _ = argmax_2d(pred_hm, threshold=1.0, normalize=False)
+    gt_pts, _, gt_valid = argmax_2d(gt_hm, threshold=1.0, normalize=False)
+    m = gt_valid[..., None].to(pred_pts.dtype)
+    return {
+        f"{prefix}_l1_error_heatmap": err.sum(dim=(1, 2)),
+        f"{prefix}_pos_l1_error_heatmap": (err * pos).sum(dim=(1, 2)),
+        f"{prefix}_mse_heatmap": ((pred_hm - gt_hm) ** 2).mean(dim=(1, 2, 3, 4)),
+        f"{prefix}_mse_pts2d": ((pred_pts * m - gt_pts * m) ** 2).mean(dim=(1, 2, 3)),
+    }
+
+
 def pose_eval_metrics(pred: torch.Tensor, gt: torch.Tensor,
                       prefix: str) -> Metrics:
     """Per-sample MPJPE / PA-MPJPE (mm) and PCK3D / AUC3D (%), cm inputs."""
@@ -59,13 +99,158 @@ def pose_eval_metrics(pred: torch.Tensor, gt: torch.Tensor,
     }
 
 
-class Pose3DTask:
+def _device(device, who: str) -> torch.device:
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: CUDA is not available; pass device='cpu' "
+                           f"to build on the CPU")
+    return device
+
+
+def _maybe_imagenet_init(model: nn.Module, use_imagenet_pretrain: bool) -> nn.Module:
+    """Graft the ImageNet ResNet-18 into every backbone of ``model`` when the
+    config asks for it; raises ``FileNotFoundError`` when the weights are
+    nowhere (:func:`~egorear_tpu_torch.train.imagenet.load_imagenet_resnet18`):
+    training the backbones from scratch under the flag would be silent."""
+    if use_imagenet_pretrain:
+        graft_imagenet_backbones(model, load_imagenet_resnet18())
+    return model
+
+
+def _build(model: nn.Module, seed: int, use_imagenet_pretrain: bool,
+           device: torch.device) -> nn.Module:
+    """Seeded init, then ImageNet, then the move to ``device``: the graft
+    lands before any device or dtype change."""
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return _maybe_imagenet_init(model, use_imagenet_pretrain).to(device)
+
+
+class _Task:
+    """What the three tasks share: ``forward`` with optional parameters."""
+
+    model: nn.Module
+
+    def _args(self, img):
+        return (img,)
+
+    def forward(self, img: torch.Tensor,
+                params: Optional[Dict[str, torch.Tensor]] = None):
+        """The model on ``img``, with its own parameters or ``params``."""
+        if params is None:
+            return self.model(*self._args(img))
+        return functional_call(self.model, params, self._args(img))
+
+    @torch.no_grad()
+    def _eval_forward(self, batch: dict):
+        batch = prepare_batch(batch)
+        self.model.eval()
+        return batch, self.forward(batch["img"])
+
+
+class HeatmapTask(_Task):
+    """Stage 1: per-view heatmap regression of one stereo pair.
+
+    The loss is ``w_heatmap`` x the per-view MSE sum of the heatmaps. Extra
+    keyword arguments of the JAX constructor (dataset settings) are ignored.
+    """
+
+    name = "heatmap"
+
+    def __init__(self, model_cfg: dict, w_heatmap: float = 10.0,
+                 device=None, seed: int = 0, **_):
+        device = _device(device, "HeatmapTask")
+        ec = EncoderCfg.from_dict(model_cfg.get("encoder_cfg", {}))
+        self.model = _build(
+            HeatmapNet(ec.out_stride, ec.fpn_channels,
+                       num_heatmap=model_cfg.get("num_heatmap", 15)),
+            seed, ec.use_imagenet_pretrain, device)
+        self.w_heatmap = w_heatmap
+
+    def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None
+             ) -> Tuple[torch.Tensor, Metrics]:
+        batch = prepare_batch(batch)
+        pred = self.forward(batch["img"], params)
+        loss = _per_view_mse_sum(pred, batch["gt_heatmap"]) * self.w_heatmap
+        return loss, {"heatmap_loss": loss}
+
+    def eval_metrics(self, batch: dict, test_mode: bool = False) -> Metrics:
+        """Per-sample (B,) heatmap metrics, the model in eval mode."""
+        del test_mode
+        batch, pred = self._eval_forward(batch)
+        return heatmap_eval_metrics(pred, batch["gt_heatmap"], "proposal")
+
+    def predict_outputs(self, batch: dict) -> Metrics:
+        """Per-view heatmaps and their decoded 2D anchors in [0, 1]."""
+        _, pred = self._eval_forward(batch)
+        pts2d, conf, valid = argmax_2d(pred, threshold=0.5, normalize=True)
+        return {"heatmap": pred, "pts2d": pts2d, "pts2d_conf": conf,
+                "pts2d_valid": valid}
+
+
+class MVFexTask(_Task):
+    """Stage 2: MVFex refinement with deep supervision.
+
+    The loss is ``w_heatmap`` x the per-view MSE sum of every heatmap stage,
+    the initial heads' and each refiner layer's (``heatmap_loss_{i}``).
+    Extra keyword arguments of the JAX constructor are ignored.
+    """
+
+    name = "heatmap_mvf_ex"
+
+    def __init__(self, model_cfg: dict, w_heatmap: float = 10.0,
+                 device=None, seed: int = 0, **_):
+        device = _device(device, "MVFexTask")
+        self.cfg = MVFexNetCfg.from_dict(copy.deepcopy(model_cfg))
+        self.model = _build(HeatmapMVFexNet(self.cfg), seed,
+                            self.cfg.encoder.use_imagenet_pretrain, device)
+        self.w_heatmap = w_heatmap
+
+    def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None
+             ) -> Tuple[torch.Tensor, Metrics]:
+        batch = prepare_batch(batch)
+        hms, _ = self.forward(batch["img"], params)
+        metrics = {}
+        total = 0.0
+        for i, hm in enumerate(hms):
+            li = _per_view_mse_sum(hm, batch["gt_heatmap"]) * self.w_heatmap
+            metrics[f"heatmap_loss_{i}"] = li
+            total = total + li
+        metrics["loss_total"] = total
+        return total, metrics
+
+    def eval_metrics(self, batch: dict, test_mode: bool = False) -> Metrics:
+        """Per-sample (B,) heatmap metrics of the initial (``proposal``) and
+        last refined (``final``) stages, per stereo pair; ``test_mode`` adds
+        the intermediate refiner layers (``mid_{i}``)."""
+        batch, (hms, _) = self._eval_forward(batch)
+        gt = batch["gt_heatmap"]
+        pairs = (("stereo_front", slice(0, 2)), ("stereo_back", slice(2, None)))
+        stages = [("proposal", hms[0]), ("final", hms[-1])]
+        if test_mode:
+            stages += [(f"mid_{i}", hm) for i, hm in enumerate(hms[1:-1])]
+        out = {}
+        for stage, hm in stages:
+            for pair, views in pairs:
+                out.update(heatmap_eval_metrics(hm[:, views], gt[:, views],
+                                                f"{stage}_{pair}"))
+        return out
+
+    def predict_outputs(self, batch: dict) -> Metrics:
+        """Initial and final refined heatmaps, and the final stage's decoded
+        2D anchors in [0, 1]."""
+        _, (hms, _) = self._eval_forward(batch)
+        pts2d, conf, valid = argmax_2d(hms[-1], threshold=self.cfg.heatmap_threshold,
+                                       normalize=True)
+        return {"heatmap": hms[-1], "heatmap_init": hms[0], "pts2d": pts2d,
+                "pts2d_conf": conf, "pts2d_valid": valid}
+
+
+class Pose3DTask(_Task):
     """Stage 3: the full cascade with 3D supervision.
 
-    The model is built with random weights from ``seed`` on ``device``
-    (``cuda`` when None). The loss is ``w_mpjpe`` x MPJPE of every 3D stage
-    (proposal and lifting layers) plus ``w_heatmap`` x the per-view MSE sum
-    of every heatmap stage (initial and refined).
+    The loss is ``w_mpjpe`` x MPJPE of every 3D stage (proposal and lifting
+    layers) plus ``w_heatmap`` x the per-view MSE sum of every heatmap stage
+    (initial and refined).
     """
 
     name = "pose_3d_mvf_ex"
@@ -76,30 +261,18 @@ class Pose3DTask:
                  device=None, seed: int = 0):
         if dataset_type.startswith("ego4view_rw"):
             raise NotImplementedError("the real-world rig is not ported")
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Pose3DTask: CUDA is not available; pass "
-                               "device='cpu' to build on the CPU")
+        device = _device(device, "Pose3DTask")
         self.cfg = EgoRearNetCfg.from_dict(copy.deepcopy(model_cfg))
-        if self.cfg.heatmap_mvf.encoder.use_imagenet_pretrain:
-            raise NotImplementedError(
-                "use_imagenet_pretrain needs the torchvision ResNet-18 "
-                "weights, which the repository does not hold")
-        model = init_weights(EgoRearNet(self.cfg), torch.Generator().manual_seed(seed))
-        self.model = model.to(device)
+        self.model = _build(EgoRearNet(self.cfg), seed,
+                            self.cfg.heatmap_mvf.encoder.use_imagenet_pretrain,
+                            device)
         self.rig = CameraRig.from_calib_file(self.cfg.camera_model, device=device)
         self.w_mpjpe = w_mpjpe
         self.w_heatmap = w_heatmap
         self.dataset_type = dataset_type
 
-    def forward(self, img: torch.Tensor,
-                params: Optional[Dict[str, torch.Tensor]] = None):
-        """The cascade on ``img``, with the model's own parameters or, given
-        ``params``, with those in their place (``torch.func.functional_call``;
-        the model's buffers, e.g. BN running stats, are used and updated)."""
-        if params is None:
-            return self.model(img, self.rig)
-        return functional_call(self.model, params, (img, self.rig))
+    def _args(self, img):
+        return (img, self.rig)
 
     def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None
              ) -> Tuple[torch.Tensor, Metrics]:
@@ -120,25 +293,25 @@ class Pose3DTask:
         metrics["loss_total"] = total
         return total, metrics
 
-    @torch.no_grad()
     def eval_metrics(self, batch: dict, test_mode: bool = False) -> Metrics:
         """Per-sample (B,) metrics of the final and proposal 3D stages, the
         model in eval mode (BN on its running stats)."""
         del test_mode
-        batch = prepare_batch(batch)
-        self.model.eval()
-        preds3d, _ = self.forward(batch["img"])
+        batch, (preds3d, _) = self._eval_forward(batch)
         gt = batch["gt_pose"].float()
         out = {}
         out.update(pose_eval_metrics(preds3d[-1].float(), gt, "final"))
         out.update(pose_eval_metrics(preds3d[0].float(), gt, "proposal"))
         return out
 
-    @torch.no_grad()
     def predict_outputs(self, batch: dict) -> Metrics:
         """Final and proposal 3D poses (B, J, 3) cm, the model in eval mode."""
-        batch = prepare_batch(batch)
-        self.model.eval()
-        preds3d, _ = self.forward(batch["img"])
+        _, (preds3d, _) = self._eval_forward(batch)
         return {"final": preds3d[-1], "proposal": preds3d[0]}
 
+
+TASKS = {
+    HeatmapTask.name: HeatmapTask,
+    MVFexTask.name: MVFexTask,
+    Pose3DTask.name: Pose3DTask,
+}

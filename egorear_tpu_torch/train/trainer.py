@@ -14,8 +14,13 @@ clipping, AdamW with the scheduled lr, ``step += 1``.
     and the master weights are fp32. ``torch.autocast`` is not used: it
     would keep other ops in fp32 than JAX does.
 
-Not ported yet: ``fit``, CSV logging, the non-finite guard, checkpoints,
-``remat``, and dropout at a non-zero rate (which raises).
+The trainer is generic over the three tasks (``train/tasks.py``): it calls
+``task.loss(batch, params)`` and ``task.eval_metrics``. Its
+:meth:`~Trainer.state_dict` (model, optimizer, step) is what the port's
+checkpoints hold (``train/checkpoint.py``).
+
+Not ported yet: ``fit``, CSV logging, the non-finite guard, ``remat``, and
+dropout at a non-zero rate (which raises).
 """
 
 from __future__ import annotations
@@ -32,6 +37,13 @@ from egorear_tpu_torch.train.optim import (
 )
 
 PRECISIONS = ("32", "bf16-mixed")
+
+
+def no_decay_mask_for(task_name: str, encoder_lr_scale: float = 1.0) -> bool:
+    """Whether norms and biases are exempt from weight decay: for the
+    stage-3 task at ``encoder_lr_scale`` 1 only, as the JAX package's
+    ``run.py`` builds its trainer."""
+    return task_name == "pose_3d_mvf_ex" and encoder_lr_scale == 1.0
 
 
 class Trainer:
@@ -75,6 +87,28 @@ class Trainer:
             no_decay_mask=self.no_decay_mask,
             encoder_lr_scale=self.encoder_lr_scale)
         self.step = 0
+
+    def state_dict(self) -> dict:
+        """Model (parameters and BN buffers), optimizer state and step."""
+        if self.optimizer is None:
+            raise RuntimeError("call init_state(steps_per_epoch) first")
+        return {"model": self.task.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(), "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`'s output, from any device, into the
+        live model and optimizer, strictly: the model's tensors are copied
+        in place, the moments land on their parameter's device and AdamW's
+        step counts on the host, where the optimizer keeps them."""
+        if self.optimizer is None:
+            raise RuntimeError("call init_state(steps_per_epoch) first")
+        self.task.model.load_state_dict(state["model"], strict=True)
+        opt = state["optimizer"]
+        self.optimizer.load_state_dict({
+            "state": {i: {k: v.cpu() if torch.is_tensor(v) else v
+                          for k, v in s.items()} for i, s in opt["state"].items()},
+            "param_groups": opt["param_groups"]})
+        self.step = int(state["step"])
 
     def _cast(self, batch: dict) -> dict:
         if not self.mixed:

@@ -1,6 +1,7 @@
 """The port's CUDA kernel wrappers, forward and backward, of both sampling
 ops (lazy and per-head): their input checks (on the CPU) and the kernels
-against their plain versions (on a card).
+against their plain versions (on a card). Also on a card: a stage-2 train
+step's kernel launches, a checkpoint round trip and the ImageNet graft.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. On a machine with an NVIDIA GPU and nvcc, from
@@ -11,6 +12,8 @@ the repository root (``--noconftest`` skips the JAX set-up of
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import pytest
@@ -931,3 +934,105 @@ def test_sampling_on_card_raises_instead_of_falling_back():
         deformable_sampling(value.transpose(1, 2), loc, w)
     out = deformable_sampling(value, loc, w, plain=True)
     assert out.is_cuda and deformable_sampling.launches == before
+
+
+# -- stages 1 and 2 on the card --------------------------------------------------
+
+
+def _stage2_batch(B, size, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {"img": torch.randn(B, 4, 3, size, size, generator=g, device=device),
+            "gt_heatmap": torch.rand(B, 4, 15, size // 4, size // 4, generator=g,
+                                     device=device)}
+
+
+@pytest.mark.cuda
+def test_stage2_train_step_launches_the_lazy_kernels_on_card():
+    """One stage-2 step (64 px, b2, fp32) launches the lazy forward once per
+    refiner and its backward (no ``d_feat``: the refiners sample detached
+    features) once per refiner; the per-head kernels never."""
+    _needs_card()
+    from egorear_tpu_torch import entry
+
+    task, trainer = entry.build_stage2((64, 64), steps_per_epoch=10,
+                                       imagenet=False)
+    counters = (lazy_deform_sample, lazy_deform_sample_backward,
+                deformable_sampling, deformable_sampling_backward)
+    for fn in counters:
+        fn.launches = 0
+    metrics = trainer.train_step(_stage2_batch(2, 64, "cuda"))
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [4, 4, 0, 0]
+    assert bool(torch.isfinite(metrics["loss_total"]))
+    assert next(task.model.parameters()).is_cuda
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_a_cuda_trainer_round_trips_bitwise(tmp_path):
+    _needs_card()
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.train import checkpoint
+
+    task, trainer = entry.build_stage1(steps_per_epoch=10, imagenet=False)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"img": torch.randn(2, 2, 3, 64, 64, generator=g, device="cuda"),
+             "gt_heatmap": torch.rand(2, 2, 15, 16, 16, generator=g, device="cuda")}
+    trainer.train_step(batch)
+    path = checkpoint.save(str(tmp_path), 1, trainer.state_dict())
+    task2, trainer2 = entry.build_stage1(seed=1, steps_per_epoch=10, imagenet=False)
+    trainer2.load_state_dict(checkpoint.restore(path, map_location="cuda"))
+    assert trainer2.step == trainer.step == 1
+    for a, b in ((task.model.state_dict(), task2.model.state_dict()),):
+        for k in a:
+            assert b[k].is_cuda and torch.equal(a[k], b[k]), k
+    sa, sb = trainer.optimizer.state_dict(), trainer2.optimizer.state_dict()
+    for i, s in sa["state"].items():
+        for k, v in s.items():
+            assert torch.equal(v, sb["state"][i][k]), (i, k)
+    # The next step of both, bitwise: cuDNN's deterministic algorithms
+    # (its default weight-gradient algorithms sum in a varying order).
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer.train_step(batch)
+        trainer2.train_step(batch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for k, v in task.model.state_dict().items():
+        assert torch.equal(v, task2.model.state_dict()[k]), k
+
+
+@pytest.mark.cuda
+def test_imagenet_graft_lands_in_the_model_dtype_on_card():
+    """The graft copies into a bf16 model on the card in place: each leaf
+    keeps its dtype and device and holds the weight rounded once to bf16."""
+    _needs_card()
+    from egorear_tpu_torch.models.backbone import ResNet18
+    from egorear_tpu_torch.models.heatmap_net import HeatmapNet
+    from egorear_tpu_torch.train.imagenet import (
+        convert_torchvision_resnet18,
+        graft_imagenet_backbones,
+    )
+
+    gen = torch.Generator().manual_seed(3)
+    tv = {}
+    for k, v in ResNet18().state_dict().items():
+        if "num_batches" in k:
+            continue
+        k = (k.replace("downsample_conv", "downsample.0")
+              .replace("downsample_bn", "downsample.1"))
+        k = re.sub(r"^layer(\d)_(\d)\.", r"layer\1.\2.", k)
+        tv[k] = torch.randn(v.shape, generator=gen)
+    weights = convert_torchvision_resnet18(tv)
+    model = HeatmapNet(num_heatmap=15).cuda().to(torch.bfloat16)
+    before = [id(p) for p in model.parameters()]
+    fpn = {k: v.clone() for k, v in model.encoder.fpn.state_dict().items()}
+    assert graft_imagenet_backbones(model, weights) == 1
+    assert [id(p) for p in model.parameters()] == before
+    for k, v in model.encoder.resnet.state_dict().items():
+        if "num_batches" in k:
+            continue
+        assert v.is_cuda and v.dtype == torch.bfloat16, k
+        assert torch.equal(v, weights[k].to("cuda", torch.bfloat16)), k
+    for k, v in model.encoder.fpn.state_dict().items():
+        assert torch.equal(v, fpn[k]), k

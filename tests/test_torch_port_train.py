@@ -369,11 +369,15 @@ def test_eval_and_predict_match_jax(cascade):
 
 @pytest.mark.parametrize("fault", ["dropout", "img_u8", "precision",
                                    "imagenet", "real_world_rig"])
-def test_unported_training_paths_raise(fault):
+def test_unported_training_paths_raise(fault, monkeypatch, tmp_path):
     cfg = flagship_cfg_dict((SIZE, SIZE))
     if fault == "imagenet":
+        # The flag with no weights anywhere: no file named by the
+        # environment, an empty hub cache.
+        monkeypatch.delenv("EGOREAR_IMAGENET_RESNET18", raising=False)
+        monkeypatch.setenv("HOME", str(tmp_path))
         cfg["heatmap_mvf_cfg"]["encoder_cfg"]["resnet_cfg"]["use_imagenet_pretrain"] = True
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(FileNotFoundError, match="use_imagenet_pretrain"):
             Pose3DTask(cfg, device="cpu")
         return
     if fault == "real_world_rig":
