@@ -83,6 +83,25 @@ these phases only):
      with 7 + 7 lazy launches (each held against its plain version) and a
      finite loss.
 
+The CLI (``python -m egorear_tpu_torch.run``, called as ``run.main(argv)``)
+on the shipped yamls, full width, overrides only for the data root, the log
+directory, one epoch and the stage checkpoints:
+
+  12. a synthetic syn tree at the dataset's geometry (872-px JPEGs with the
+     joints drawn in, precomputed heatmaps; 128 train frames, 6 validation
+     and 6 test frames) and the loader's decode rate over it; ``fit`` of
+     stage 1 (both pairs, from the seeded "ImageNet" weights), stage 2
+     (grafted from both) and stage 3 (grafted from stage 2), each at its
+     yaml's batch for one epoch of at least 2 steps, with its metrics.csv,
+     finite losses, ``epoch=0.pt`` and exactly the expected lazy launches
+     (4 + 4 a stage-2 step, 7 + 7 a stage-3 step, 4 or 7 an eval batch);
+     each stage's samples/s through the loader beside its step on one
+     batch on the card and phases 8/10's; then ``test`` and ``validate``
+     (the JAX metric names, printed as JSON) and ``predict`` (b4, the last
+     batch padded) on the stage-3 checkpoint, ``predict`` also with
+     ``--device cpu`` (the plain versions) and held to the card's within
+     phase 3's ``preds_3d`` tolerance.
+
 Every phase that drives the main path sets the launch counts of all four
 kernels to 0 just before it and reads them just after.
 
@@ -1595,10 +1614,11 @@ def stage_batch(B, views, size, gen):
                                      device=TRAIN_DEVICE)}
 
 
-def phase_stage1(card, workdir: str, weights: dict) -> dict:
+def phase_stage1(card, workdir: str, weights: dict, rates: dict) -> dict:
     """Stage 1 of each stereo pair as the yamls train it: the ImageNet
     initialisation checked leaf by leaf, b64 fp32 training, a checkpoint.
-    Returns the checkpoint of each pair."""
+    Returns the checkpoint of each pair; puts each pair's samples/s in
+    ``rates``."""
     from egorear_tpu_torch import entry
     from egorear_tpu_torch.train import checkpoint
 
@@ -1628,6 +1648,7 @@ def phase_stage1(card, workdir: str, weights: dict) -> dict:
             raise AssertionError(f"stage 1 launched a sampling kernel: {run['launches']}")
         ckpts[pair] = checkpoint.save(os.path.join(workdir, f"stage1_{pair}"), 0,
                                       trainer.state_dict())
+        rates[f"stage1_{pair}"] = STAGE_B * 1e3 / run["ms"]
         print(f"[8] stage 1 stereo {pair} {TRAIN_SIZE}px B={STAGE_B} fp32: "
               f"ImageNet init {n_resnet} resnet leaves bitwise the file's, the "
               f"FPN and head the seeded init's; {run_line(run, STAGE_B)}; "
@@ -1663,12 +1684,13 @@ def phase_stage2_check(card):
           flush=True)
 
 
-def phase_stage2(card, workdir: str, stage1: dict):
+def phase_stage2(card, workdir: str, stage1: dict, rates: dict):
     """Stage 2 as the yaml trains it: the ImageNet initialisation, then both
     stage-1 checkpoints grafted (checked leaf by leaf), b64 fp32 training
     with 4 + 4 lazy launches a step, one more step whose launches are held
     against their plain versions at B = 256 (:func:`kept_step`), a
-    checkpoint. Returns the checkpoint and the launch counts."""
+    checkpoint. Returns the checkpoint and the launch counts; puts the
+    samples/s in ``rates``."""
     from egorear_tpu_torch import entry
     from egorear_tpu_torch.train import checkpoint
 
@@ -1711,6 +1733,7 @@ def phase_stage2(card, workdir: str, stage1: dict):
           f"{run['steps']} x {LAUNCHES_MVFEX}, per-head kernels 0; checkpoint "
           f"saved | {card}", flush=True)
     ckpt = checkpoint.save(os.path.join(workdir, "stage2"), 0, trainer.state_dict())
+    rates["stage2"] = STAGE_B * 1e3 / run["ms"]
     kept_step(task, trainer, batch, gen, stage2_launches(1), "[10]", card)
     return ckpt, run["launches"]
 
@@ -1746,6 +1769,230 @@ def phase_stage3_graft(card, stage2: str):
           f"checkpoint's; one step, loss {loss:.4f}, launches lazy_deform_sample "
           f"{want['lazy_deform_sample']}, lazy_deform_sample_bwd "
           f"{want['lazy_deform_sample_bwd']} | {card}", flush=True)
+
+
+# Phase 12: the CLI (``egorear_tpu_torch.run.main``) on the shipped yamls,
+# at full width, on a synthetic syn tree at the dataset's geometry (872-px
+# JPEGs with the joints drawn in, precomputed heatmaps): 128 train frames
+# (stage 1: 256 items, 4 steps at b64; stage 2: 2 steps at b64; stage 3: 4
+# steps at b32) and 6 validation and test frames (one padded batch).
+CLI_TRAIN_FRAMES, CLI_EVAL_FRAMES, CLI_PREDICT_B = 128, 6, 4
+CLI_IMAGE_SIZE = 872
+CLI_FIXED_STEPS = 3  # steps on one batch already on the card, per stage
+CLI_OVERRIDES: list = []  # a CPU rehearsal may add --model.batch_size
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+POSE_METRICS = [f"{s}_{m}" for s in ("final", "proposal")
+                for m in ("auc_3d", "mpjpe", "pa_mpjpe", "pck_3d")]
+
+
+def cli_run(argv: list):
+    """``run.main(argv)`` with the kernel launch counts from 0 over it;
+    returns its result, the counts and what it printed."""
+    import io
+
+    from egorear_tpu_torch import run
+
+    out = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(out):
+        result = run.main(argv)
+    torch.cuda.synchronize()
+    return result, read_launches(), out.getvalue()
+
+
+def cli_launches(forwards: int, backwards: int, per: int) -> dict:
+    want = dict.fromkeys(KERNELS, 0)
+    want["lazy_deform_sample"] = forwards * per
+    want["lazy_deform_sample_bwd"] = backwards * per
+    return want
+
+
+def fixed_batch_rate(trainer, batch: dict) -> float:
+    """Samples/s of ``CLI_FIXED_STEPS`` train steps on one batch already on
+    the card (no loader), after the fit: the same trainer's step alone."""
+    batch = {k: v for k, v in batch.items() if torch.is_tensor(v)}
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CLI_FIXED_STEPS):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    n = next(iter(batch.values())).shape[0]
+    return n * CLI_FIXED_STEPS / (time.perf_counter() - t0)
+
+
+def cli_fit(card, name: str, root: str, workdir: str, n_items: int,
+            per: int, extra: list, synthetic: float | None):
+    """``fit`` of one yaml for one epoch over ``n_items`` train items: its
+    metrics.csv, finite losses, ``epoch=0.pt``, at least 2 steps, the lazy
+    launches (``per`` each way a step, ``per`` forwards for the one
+    validation batch); prints the epoch's samples/s through the loader
+    beside the same step's on one batch on the card (their ratio is the
+    loader-bound share) and ``synthetic`` (the phase-8/10 rate). Returns the
+    checkpoint and the launch counts."""
+    import csv
+
+    from egorear_tpu_torch import run
+    from egorear_tpu_torch.config.loader import load_config
+    from egorear_tpu_torch.data.loader import DataLoader
+
+    yaml_path = os.path.join(CONFIGS, f"{name}.yaml")
+    overrides = ["--model.data_root", root, "--trainer.max_epochs", "1",
+                 "--trainer.save_dir", os.path.join(workdir, "cli", name),
+                 "--device", TRAIN_DEVICE] + extra + CLI_OVERRIDES
+    trainer, launched, _ = cli_run(["fit", "--config", yaml_path] + overrides)
+    (_, steps, seconds), = trainer.epoch_times
+    want_steps = n_items // trainer.batch_size
+    want = cli_launches(steps + 1, steps, per)
+    if steps != want_steps or steps < 2 or launched != want:
+        raise AssertionError(f"[12] {name}: {steps} steps launched {launched}, "
+                             f"expected {want_steps} >= 2 steps and {want}")
+    with open(trainer.logger.path) as f:
+        rows = list(csv.DictReader(f))
+    key = "train/loss_total" if "train/loss_total" in rows[0] else "train/heatmap_loss"
+    losses = [float(r[key]) for r in rows if r[key]]
+    ckpt = os.path.join(trainer.logger.dir, "checkpoints", "epoch=0.pt")
+    if not (losses and all(math.isfinite(x) for x in losses)
+            and any(v for k, v in rows[-1].items() if k.startswith("val/"))
+            and os.path.exists(ckpt)):
+        raise AssertionError(f"[12] {name}: losses {losses}, rows {len(rows)}, "
+                             f"checkpoint {os.path.exists(ckpt)}")
+    B = trainer.batch_size
+    (train_ds,) = run._datasets(load_config(yaml_path, overrides).init_args,
+                                ("train",))
+    fixed = fixed_batch_rate(trainer, next(iter(DataLoader(train_ds, B,
+                                                           device=TRAIN_DEVICE))))
+    through = steps * B / seconds
+    # Phase 8's stage-1 samples hold both views of a pair; the dataset's
+    # items hold one, so the share is taken against the same step here.
+    against = (f", phase 8/10's synthetic b64 {synthetic:.1f} samples/s"
+               if synthetic else "")
+    print(f"[12] fit {name} B={B}: {steps} steps in {seconds:.3f} s through the "
+          f"loader ({through:.1f} samples/s, first step included), one batch on "
+          f"the card {fixed:.1f} samples/s{against}; loader-bound share "
+          f"{100 * max(0.0, 1 - through / fixed):.1f} %; launches lazy_deform_sample "
+          f"{launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
+          f"{launched['lazy_deform_sample_bwd']} = ({steps} steps + 1 val batch) "
+          f"x {per}, {steps} x {per}; {key} at the epoch's end {losses[-1]:.4f} "
+          f"| {card}", flush=True)
+    return ckpt, launched
+
+
+def phase_cli(card, workdir: str, rates: dict) -> dict:
+    """The CLI chain on the card: a synthetic tree, stage 1 ``fit`` of both
+    pairs (from the seeded "ImageNet" weights), stage 2 grafted from both,
+    stage 3 grafted from stage 2, then ``test``, ``validate`` and
+    ``predict`` on the stage-3 checkpoint, ``predict`` also with ``--device
+    cpu`` (the plain versions) and held to the card's within phase 3's
+    tolerance; every run's lazy launches exact. Returns the launch counts
+    summed over the chain."""
+    import numpy as np
+
+    from egorear_tpu_torch.config.loader import load_config
+    from egorear_tpu_torch.data.datasets import get_dataset
+    from egorear_tpu_torch.data.loader import DataLoader
+    from egorear_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    t0 = time.perf_counter()
+    root = make_synthetic_dataset(
+        os.path.join(workdir, "ego4view_syn"), frames_per_seq=CLI_TRAIN_FRAMES,
+        eval_frames_per_seq=CLI_EVAL_FRAMES, image_size=CLI_IMAGE_SIZE,
+        write_heatmaps=True,
+        draw_pose=True, seed=0)
+    t_tree = time.perf_counter() - t0
+
+    # Decode rate: one pass of the stage-2/3 train set (4 views a frame)
+    # through the loader with the yamls' 16 workers, pinned to the card.
+    ds = get_dataset("ego4view_syn_heatmap_mvf", root, "train")
+    t1 = time.perf_counter()
+    n_img = sum(b["img"].shape[0] * b["img"].shape[1]
+                for b in DataLoader(ds, 64, num_workers=16, device=TRAIN_DEVICE))
+    torch.cuda.synchronize()
+    decode = n_img / (time.perf_counter() - t1)
+    print(f"[12] synthetic tree {CLI_TRAIN_FRAMES} + 2 x {CLI_EVAL_FRAMES} frames "
+          f"x 4 views of {CLI_IMAGE_SIZE}-px JPEGs with heatmaps in {t_tree:.1f} s; the "
+          f"loader decodes, resizes to 256 px and pins {decode:.1f} images/s "
+          f"({n_img} images, 16 workers, {os.cpu_count()} CPUs) | {card}",
+          flush=True)
+
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(launched):
+        for k, v in launched.items():
+            total[k] += v
+
+    stage1 = {}
+    for pair in ("front", "back"):
+        stage1[pair], launched = cli_fit(
+            card, f"ego4view_syn_heatmap_stereo_{pair}", root, workdir,
+            2 * CLI_TRAIN_FRAMES, 0, [], rates.get(f"stage1_{pair}"))
+        add(launched)
+    grafts = []
+    for pair in ("front", "back"):
+        grafts += [f"--model.{GRAFT_KEYS[pair]}", stage1[pair]]
+    stage2, launched = cli_fit(card, "ego4view_syn_heatmap_mvfex-n1_jqa", root,
+                               workdir, CLI_TRAIN_FRAMES, LAUNCHES_MVFEX, grafts,
+                               rates.get("stage2"))
+    add(launched)
+    stage3, launched = cli_fit(card, "ego4view_syn_pose3d", root, workdir,
+                               CLI_TRAIN_FRAMES, LAUNCHES_PER_FORWARD,
+                               ["--model.heatmap_estimator_mvf_pretrained", stage2],
+                               None)
+    add(launched)
+
+    evals = ["--config", os.path.join(CONFIGS, "ego4view_syn_pose3d.yaml"),
+             "--model.data_root", root, "--ckpt_path", stage3]
+    for sub, mode in (("test", "test"), ("validate", "val")):
+        argv = [sub] + evals + ["--trainer.save_dir", os.path.join(workdir, "cli", sub),
+                                "--device", TRAIN_DEVICE] + CLI_OVERRIDES
+        metrics, launched, printed = cli_run(argv)
+        B = load_config(argv[2], argv[3:]).init_args["batch_size"]
+        want = cli_launches(-(-CLI_EVAL_FRAMES // B), 0, LAUNCHES_PER_FORWARD)
+        names = [f"{mode}/{m}" for m in POSE_METRICS]
+        if (launched != want or list(metrics) != names
+                or json.loads(printed) != {k: round(float(v), 6)
+                                           for k, v in metrics.items()}
+                or not all(math.isfinite(v) for v in metrics.values())):
+            raise AssertionError(f"[12] {sub}: launched {launched} (expected "
+                                 f"{want}), printed {printed!r}")
+        add(launched)
+        print(f"[12] {sub} on the stage-3 checkpoint ({CLI_EVAL_FRAMES} frames "
+              f"in batches of {B}, the last padded): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in metrics.items())
+              + f"; launches lazy_deform_sample {launched['lazy_deform_sample']} "
+              f"| {card}", flush=True)
+
+    preds, seconds = {}, {}
+    n_batches = -(-CLI_EVAL_FRAMES // CLI_PREDICT_B)
+    for device in ("cuda", "cpu"):
+        argv = (["predict"] + evals + CLI_OVERRIDES
+                + ["--model.batch_size", str(CLI_PREDICT_B), "--trainer.save_dir",
+                   os.path.join(workdir, "cli", f"predict_{device}")]
+                + ["--device", TRAIN_DEVICE if device == "cuda" else "cpu"])
+        t1 = time.perf_counter()
+        path, launched, printed = cli_run(argv)
+        seconds[device] = time.perf_counter() - t1
+        want = cli_launches(n_batches if device == "cuda" else 0, 0,
+                            LAUNCHES_PER_FORWARD)
+        if launched != want or json.loads(printed) != {"predictions": path}:
+            raise AssertionError(f"[12] predict on {device}: launched {launched}, "
+                                 f"expected {want}; printed {printed!r}")
+        add(launched)
+        preds[device] = np.load(path, allow_pickle=True)
+    got, want = preds["cuda"], preds["cpu"]
+    errs = {k: float(np.abs(got[k] - want[k]).max()) for k in ("final", "proposal")}
+    print(f"[12] predict B={CLI_PREDICT_B} on the card ({seconds['cuda']:.1f} s, "
+          f"{n_batches} batches, the last padded) vs --device cpu (plain "
+          f"versions, {seconds['cpu']:.1f} s): preds_3d max-abs cm {errs} (tol "
+          f"{E2E_P3D_TOL:g}), {got['final'].shape} each | {card}", flush=True)
+    if not (list(got["frame_path"]) == list(want["frame_path"])
+            and got["final"].shape == (CLI_EVAL_FRAMES, 16, 3)
+            and np.isfinite(got["final"]).all()
+            and max(errs.values()) <= E2E_P3D_TOL):
+        raise AssertionError("[12] predict on the card disagrees with the CPU")
+    print(f"[12] CLI chain {time.perf_counter() - t0:.1f} s (tree {t_tree:.1f} s) "
+          f"| {card}", flush=True)
+    return total
 
 
 def main() -> int:
@@ -1806,10 +2053,13 @@ def main() -> int:
             from egorear_tpu_torch.train.imagenet import load_imagenet_resnet18
 
             weights = load_imagenet_resnet18()
-            stage1 = timed("8", phase_stage1, card, workdir, weights)
+            rates = {}
+            stage1 = timed("8", phase_stage1, card, workdir, weights, rates)
             timed("9", phase_stage2_check, card)
-            stage2, stage2_launched = timed("10", phase_stage2, card, workdir, stage1)
+            stage2, stage2_launched = timed("10", phase_stage2, card, workdir,
+                                            stage1, rates)
             timed("11", phase_stage3_graft, card, stage2)
+            cli_launched = timed("12", phase_cli, card, workdir, rates)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[7] main-path launches: serving forward lazy_deform_sample "
@@ -1820,7 +2070,9 @@ def main() -> int:
           f"{train[False]['deform_sample']}, deform_sample_bwd "
           f"{train[False]['deform_sample_bwd']}; stage-2 training "
           f"lazy_deform_sample {stage2_launched['lazy_deform_sample']}, "
-          f"lazy_deform_sample_bwd {stage2_launched['lazy_deform_sample_bwd']} "
+          f"lazy_deform_sample_bwd {stage2_launched['lazy_deform_sample_bwd']}; "
+          f"CLI chain lazy_deform_sample {cli_launched['lazy_deform_sample']}, "
+          f"lazy_deform_sample_bwd {cli_launched['lazy_deform_sample_bwd']} "
           f"| {card}", flush=True)
     print("[7] seconds by phase: "
           + " ".join(f"{k}={v:.1f}" for k, v in seconds.items())

@@ -19,6 +19,7 @@ geometrically intended independent transforms.
 from __future__ import annotations
 
 import json
+import os
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
@@ -42,6 +43,22 @@ _SYN_LAYOUT = {
     "camera_back_left": (True, (-6.0, 37.0, 0.0)),
     "camera_back_right": (True, (6.0, 37.0, 0.0)),
 }
+
+
+def read_calib_dir(path: str) -> dict:
+    """The reference's calibration layout (a config's
+    ``camera_calib_file_dir_path``): one ``<camera>.json`` per camera with
+    ``size``, ``image_center``, ``polynomialC2W`` and ``polynomialW2C``,
+    as the rig JSON's ``cameras`` entries."""
+    rig_data = {}
+    for name in CAMERA_ORDER:
+        with open(os.path.join(path, f"{name}.json")) as f:
+            d = json.load(f)
+        rig_data[name] = {"image_size_hw": d["size"],
+                          "center_xy": d["image_center"],
+                          "poly_cam2world": d["polynomialC2W"],
+                          "poly_world2cam": d["polynomialW2C"]}
+    return rig_data
 
 
 def default_calib_path() -> str:
@@ -72,14 +89,19 @@ class CameraRig:
                         device=None) -> "CameraRig":
         """Build the 4-view rig of the reference ``camera_model``
         ``ego4view_syn`` from a rig JSON (default: the repository's
-        ``calib/ego4view_rig.json``). The stereo-pair and real-world
-        (``ego4view_rw``) rigs are not ported."""
+        ``calib/ego4view_rig.json``) or from the reference's directory of
+        per-camera JSONs (:func:`read_calib_dir`). The stereo-pair and
+        real-world (``ego4view_rw``) rigs are not ported."""
         if camera_model != "ego4view_syn":
             raise NotImplementedError(
                 f"camera model {camera_model!r}: only the 4-view synthetic "
                 f"ego4view_syn rig is ported")
-        with open(calib_path or default_calib_path()) as f:
-            rig_data = json.load(f)["cameras"]
+        calib_path = calib_path or default_calib_path()
+        if os.path.isdir(calib_path):
+            rig_data = read_calib_dir(calib_path)
+        else:
+            with open(calib_path) as f:
+                rig_data = json.load(f)["cameras"]
         cameras = CAMERA_ORDER
 
         polys, centers, sizes = [], [], []

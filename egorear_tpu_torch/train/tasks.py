@@ -19,6 +19,7 @@ train/eval mode is the caller's.
 from __future__ import annotations
 
 import copy
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -99,7 +100,9 @@ def pose_eval_metrics(pred: torch.Tensor, gt: torch.Tensor,
     }
 
 
-def _device(device, who: str) -> torch.device:
+def resolve_device(device, who: str) -> torch.device:
+    """``device`` (``cuda`` when None); raises without CUDA, never falls
+    back to the CPU."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{who}: CUDA is not available; pass device='cpu' "
@@ -123,6 +126,18 @@ def _build(model: nn.Module, seed: int, use_imagenet_pretrain: bool,
     lands before any device or dtype change."""
     init_weights(model, torch.Generator().manual_seed(seed))
     return _maybe_imagenet_init(model, use_imagenet_pretrain).to(device)
+
+
+def resolve_calib_path(model_cfg: dict, camera_calib_path: Optional[str]
+                       ) -> Optional[str]:
+    """The stage-3 calibration source, as the JAX package resolves it: the
+    explicit path, else the config's ``pose3d_cfg.camera_calib_file_dir_path``
+    if it exists on disk, else None (the repository's rig file)."""
+    if camera_calib_path is None:
+        ref = (model_cfg.get("pose3d_cfg") or {}).get("camera_calib_file_dir_path")
+        if ref and os.path.exists(ref):
+            camera_calib_path = ref
+    return camera_calib_path
 
 
 class _Task:
@@ -150,15 +165,16 @@ class _Task:
 class HeatmapTask(_Task):
     """Stage 1: per-view heatmap regression of one stereo pair.
 
-    The loss is ``w_heatmap`` x the per-view MSE sum of the heatmaps. Extra
-    keyword arguments of the JAX constructor (dataset settings) are ignored.
+    The loss is ``w_heatmap`` x the per-view MSE sum of the heatmaps. The
+    other keyword arguments of the JAX constructors (dataset and rig
+    settings) are taken and not used, so one call builds any task.
     """
 
     name = "heatmap"
 
     def __init__(self, model_cfg: dict, w_heatmap: float = 10.0,
                  device=None, seed: int = 0, **_):
-        device = _device(device, "HeatmapTask")
+        device = resolve_device(device, "HeatmapTask")
         ec = EncoderCfg.from_dict(model_cfg.get("encoder_cfg", {}))
         self.model = _build(
             HeatmapNet(ec.out_stride, ec.fpn_channels,
@@ -192,14 +208,15 @@ class MVFexTask(_Task):
 
     The loss is ``w_heatmap`` x the per-view MSE sum of every heatmap stage,
     the initial heads' and each refiner layer's (``heatmap_loss_{i}``).
-    Extra keyword arguments of the JAX constructor are ignored.
+    The other keyword arguments of the JAX constructors are taken and not
+    used.
     """
 
     name = "heatmap_mvf_ex"
 
     def __init__(self, model_cfg: dict, w_heatmap: float = 10.0,
                  device=None, seed: int = 0, **_):
-        device = _device(device, "MVFexTask")
+        device = resolve_device(device, "MVFexTask")
         self.cfg = MVFexNetCfg.from_dict(copy.deepcopy(model_cfg))
         self.model = _build(HeatmapMVFexNet(self.cfg), seed,
                             self.cfg.encoder.use_imagenet_pretrain, device)
@@ -250,7 +267,9 @@ class Pose3DTask(_Task):
 
     The loss is ``w_mpjpe`` x MPJPE of every 3D stage (proposal and lifting
     layers) plus ``w_heatmap`` x the per-view MSE sum of every heatmap stage
-    (initial and refined).
+    (initial and refined). The rig is the config's ``camera_model`` from
+    :func:`resolve_calib_path`'s source, chained as the reference unless
+    ``chained_cameras`` is False.
     """
 
     name = "pose_3d_mvf_ex"
@@ -258,18 +277,27 @@ class Pose3DTask(_Task):
     def __init__(self, model_cfg: dict, w_mpjpe: float = 0.1,
                  w_heatmap: float = 10.0,
                  dataset_type: str = "ego4view_syn_pose3d",
-                 device=None, seed: int = 0):
+                 pose_relative_type: str = "device",
+                 camera_calib_path: Optional[str] = None,
+                 chained_cameras: bool = True,
+                 device=None, seed: int = 0, **_):
         if dataset_type.startswith("ego4view_rw"):
-            raise NotImplementedError("the real-world rig is not ported")
-        device = _device(device, "Pose3DTask")
+            raise NotImplementedError("the real-world rig is not ported "
+                                      "(ROADMAP Queue A 7)")
+        device = resolve_device(device, "Pose3DTask")
         self.cfg = EgoRearNetCfg.from_dict(copy.deepcopy(model_cfg))
         self.model = _build(EgoRearNet(self.cfg), seed,
                             self.cfg.heatmap_mvf.encoder.use_imagenet_pretrain,
                             device)
-        self.rig = CameraRig.from_calib_file(self.cfg.camera_model, device=device)
+        self.rig = CameraRig.from_calib_file(
+            self.cfg.camera_model, resolve_calib_path(model_cfg, camera_calib_path),
+            chained=chained_cameras, device=device)
         self.w_mpjpe = w_mpjpe
         self.w_heatmap = w_heatmap
         self.dataset_type = dataset_type
+        # Only the reference's UnrealEgo pelvis-relative eval reads it; the
+        # network ignores the origin either way.
+        self.pose_relative_type = pose_relative_type
 
     def _args(self, img):
         return (img, self.rig)

@@ -1,7 +1,8 @@
 """The port's CUDA kernel wrappers, forward and backward, of both sampling
 ops (lazy and per-head): their input checks (on the CPU) and the kernels
 against their plain versions (on a card). Also on a card: a stage-2 train
-step's kernel launches, a checkpoint round trip and the ImageNet graft.
+step's kernel launches, a checkpoint round trip, the ImageNet graft, the
+loader's pinned transfer and a stage-2 ``fit`` through the CLI.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. On a machine with an NVIDIA GPU and nvcc, from
@@ -13,6 +14,7 @@ the repository root (``--noconftest`` skips the JAX set-up of
 
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
@@ -1036,3 +1038,65 @@ def test_imagenet_graft_lands_in_the_model_dtype_on_card():
         assert torch.equal(v, weights[k].to("cuda", torch.bfloat16)), k
     for k, v in model.encoder.fpn.state_dict().items():
         assert torch.equal(v, fpn[k]), k
+
+
+@pytest.mark.cuda
+def test_loader_moves_batches_to_the_card_pinned(monkeypatch):
+    """``DataLoader(device="cuda")``: every array field on the card and
+    equal to its host batch, each through pinned host memory; lists and
+    ``__valid_n__`` stay on the host."""
+    _needs_card()
+    pinned = []
+    pin = torch.Tensor.pin_memory
+    monkeypatch.setattr(torch.Tensor, "pin_memory",
+                        lambda self, *a: pinned.append(1) or pin(self, *a))
+    from egorear_tpu_torch.data.loader import DataLoader
+
+    class Samples:
+        def __len__(self):
+            return 5
+
+        def __getitem__(self, i):
+            return {"x": np.full((3, 4), i, np.float32), "i": np.array(i),
+                    "frame_path": f"f{i}"}
+
+    host = list(DataLoader(Samples(), 2, pad_last=True))
+    card = list(DataLoader(Samples(), 2, pad_last=True, device="cuda"))
+    assert [b["__valid_n__"] for b in card] == [2, 2, 1]
+    for h, c in zip(host, card):
+        for k in ("x", "i"):
+            assert c[k].is_cuda and torch.equal(c[k].cpu(), h[k]), k
+        assert c["frame_path"] == h["frame_path"]
+    assert len(pinned) == 2 * len(card)
+
+
+@pytest.mark.cuda
+def test_stage2_fit_through_the_cli_launches_the_lazy_kernels_on_card(tmp_path):
+    """``run.main fit`` on the stage-2 yaml (full width, b2, one epoch of
+    one step, no stage-1 grafts, random backbones): 4 + 4 lazy launches for
+    the step and 4 for the one validation batch; the per-head kernels
+    never."""
+    _needs_card()
+    from egorear_tpu_torch import run
+    from egorear_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    root = make_synthetic_dataset(str(tmp_path / "data"), frames_per_seq=2,
+                                  eval_frames_per_seq=1, image_size=96,
+                                  write_heatmaps=True, seed=4)
+    counters = (lazy_deform_sample, lazy_deform_sample_backward,
+                deformable_sampling, deformable_sampling_backward)
+    for fn in counters:
+        fn.launches = 0
+    config = os.path.join(os.path.dirname(__file__), os.pardir, "configs",
+                          "ego4view_syn_heatmap_mvfex-n1_jqa.yaml")
+    trainer = run.main([
+        "fit", "--config", config,
+        "--model.data_root", root, "--model.batch_size", "2",
+        "--model.workers", "2", "--trainer.max_epochs", "1",
+        "--trainer.save_dir", str(tmp_path / "logs"),
+        "--model.heatmap_estimator_pretrained_stereo_front", "",
+        "--model.heatmap_estimator_pretrained_stereo_back", "",
+        "--model.model_cfg.encoder_cfg.resnet_cfg.use_imagenet_pretrain", "false"])
+    torch.cuda.synchronize()
+    assert trainer.step == 1 and trainer.device.type == "cuda"
+    assert [fn.launches for fn in counters] == [4 + 4, 4, 0, 0]
