@@ -102,6 +102,22 @@ directory, one epoch and the stage checkpoints:
      ``--device cpu`` (the plain versions) and held to the card's within
      phase 3's ``preds_3d`` tolerance.
 
+The stereo-pair (V = 2) and real-world yamls through the CLI, the same way:
+
+  13. a: ``fit`` of the V = 2 stage 2 (``*_mvfex-n1_jqa_stereo_front``, b64,
+     grafted from phase 12's stage-1 front checkpoint: 2 + 2 lazy launches
+     a step, kernel batch 2 B) and stage 3 (``ego4view_syn_pose3d_stereo_front``,
+     b32, grafted from it: 5 + 5) on phase 12's tree, a kept step of each,
+     ``test`` (5 launches a batch); b: a real-world tree (872-px PNGs, 64
+     train and 6 + 6 eval frames, each sequence's device-to-camera
+     transforms), ``fit`` of ``ego4view_rw_pose3d`` (b32, 7 + 7) and
+     ``ego4view_rw_pose3d_stereo_front`` (5 + 5), each taking its stage-2
+     checkpoint (phase 12's, 13a's) as an EgoRear Lightning ``.ckpt``
+     (:func:`write_egorear_ckpt`; the grafted leaves bitwise the
+     checkpoint's), a kept step each, ``test`` from the stage-3 result as
+     ``.pt`` and as ``.ckpt`` (identical metrics), and ``predict`` of the
+     V = 2 yaml on the card vs ``--device cpu``.
+
 Every phase that drives the main path sets the launch counts of all four
 kernels to 0 just before it and reads them just after.
 
@@ -138,10 +154,23 @@ SHAPES = {
     "mvfex": dict(B=64, Q=15, nh=4, P=16, H=64, Cin=128, G=4, C=256),
     "pose3d": dict(B=64, Q=16, nh=4, P=16, H=64, Cin=128, G=0, C=0),
 }
-# Kernel launches per flagship forward: 4 MVFex refiners run as a loop of
-# 4 modules (one launch each), then 3 lifting layers.
-LAUNCHES_MVFEX, LAUNCHES_POSE3D = 4, 3
-LAUNCHES_PER_FORWARD = LAUNCHES_MVFEX + LAUNCHES_POSE3D
+# Kernel launches per forward: the V MVFex refiners run as a loop of V
+# modules, one launch each for their one layer (models/mvfex.py), then the 3
+# lifting layers one each (models/pose3d.py). A CPU rehearsal, where no
+# kernel launches, sets both constants to 0.
+LAUNCHES_PER_REFINER, LAUNCHES_POSE3D = 1, 3
+
+
+def launches_mvfex(views: int = 4) -> int:
+    """Sampling-kernel launches of one forward of the V-view refiners."""
+    return views * LAUNCHES_PER_REFINER
+
+
+def launches_per_forward(views: int = 4) -> int:
+    """Sampling-kernel launches of one V-view cascade forward."""
+    return launches_mvfex(views) + LAUNCHES_POSE3D
+
+
 SERVE_BATCH, SERVE_WARMUP, SERVE_TIMED = 16, 3, 10
 E2E_BATCH, E2E_HM_TOL, E2E_P3D_TOL = 2, 1e-4, 1e-2
 # Backward kernel vs plain version: max-abs error of each gradient over that
@@ -210,8 +239,8 @@ def expected_launches(lazy: bool, forwards: int, backwards: int) -> dict:
     kernels never launch."""
     fwd, bwd = kernel_names(lazy)
     want = dict.fromkeys(KERNELS, 0)
-    want[fwd] = forwards * LAUNCHES_PER_FORWARD
-    want[bwd] = backwards * LAUNCHES_PER_FORWARD
+    want[fwd] = forwards * launches_per_forward()
+    want[bwd] = backwards * launches_per_forward()
     return want
 
 
@@ -583,7 +612,7 @@ def phase_backward_kernels(card, model_locs):
             # 3 pose3d calls with it.
             if dtype == torch.bfloat16 and need_feat == (name == "pose3d"):
                 main_path[locs] = main_path.get(locs, 0.0) + (
-                    LAUNCHES_MVFEX if name == "mvfex" else LAUNCHES_POSE3D) * ms
+                    launches_mvfex() if name == "mvfex" else LAUNCHES_POSE3D) * ms
             # The record: the refiner call of the bf16 training step.
             if (name == "mvfex" and dtype == torch.bfloat16 and not need_feat
                     and locs == "uniform"):
@@ -591,7 +620,7 @@ def phase_backward_kernels(card, model_locs):
                               plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=library_ms)
     print(f"[2b] lazy_deform_sample_bwd main path of a bf16 step "
-          f"({LAUNCHES_MVFEX} x MVFex without d_feat + {LAUNCHES_POSE3D} x "
+          f"({launches_mvfex()} x MVFex without d_feat + {LAUNCHES_POSE3D} x "
           f"pose3d with it, kernel times above): "
           + ", ".join(f"{locs} {ms:.4f} ms" for locs, ms in main_path.items())
           + f" | {card}", flush=True)
@@ -837,12 +866,12 @@ def phase_msda_backward_kernels(card, model_locs):
               f"({bound_by}) | {card}", flush=True)
         if dtype == torch.bfloat16:
             main_path[locs] = main_path.get(locs, 0.0) + (
-                LAUNCHES_MVFEX if name == "mvfex" else LAUNCHES_POSE3D) * ms
+                launches_mvfex() if name == "mvfex" else LAUNCHES_POSE3D) * ms
         if name == "mvfex" and dtype == torch.bfloat16 and locs == "uniform":
             record = dict(max_abs_err=max(abs_errs), ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms)
-    print(f"[2d] deform_sample_bwd main path of a bf16 step ({LAUNCHES_MVFEX} "
+    print(f"[2d] deform_sample_bwd main path of a bf16 step ({launches_mvfex()} "
           f"x MVFex + {LAUNCHES_POSE3D} x pose3d, kernel times above): "
           + ", ".join(f"{locs} {ms:.4f} ms" for locs, ms in main_path.items())
           + f" | {card}", flush=True)
@@ -886,7 +915,8 @@ def perturb_(model, img, gen):
     _, _, (feat_f, feat_b) = hm_net._estimator_features(img)
     peaks = hm_net._heatmaps_from_feat(feat_f, feat_b).amax(dim=(-2, -1))
     shift = 0.5 - float(peaks.median())
-    for head in (hm_net.conv_heatmap_head_front, hm_net.conv_heatmap_head_back):
+    for head in (m for n, m in hm_net.named_children()
+                 if n.startswith("conv_heatmap_head_")):
         head.Conv_4.bias.add_(shift)
 
 
@@ -992,7 +1022,7 @@ def phase_serve(card, profile: str | None, lazy: bool = True):
           f"{dt * 1e3:.3f} ms/forward (host clock, {SERVE_TIMED} forwards "
           f"after {SERVE_WARMUP} warm-up), {B / dt:.1f} samples/s "
           f"({4 * B / dt:.1f} images/s), peak {peak_gib:.2f} GiB; {name} "
-          f"launches {launches[name]} = {forwards} x {LAUNCHES_PER_FORWARD} "
+          f"launches {launches[name]} = {forwards} x {launches_per_forward()} "
           f"(4 refiners looped + 3 lifting layers), other kernels 0 | {card}",
           flush=True)
     if profile:
@@ -1545,7 +1575,7 @@ def phase_train(card, profile: str | None, lazy: bool = True):
           f"{trainer.lr:g} warmed over {trainer.warmup_iters} steps): "
           f"{run_line(run, TRAIN_B, (fwd, bwd))}; launches {fwd} "
           f"{launches[fwd]}, {bwd} {launches[bwd]} = {steps} x "
-          f"{LAUNCHES_PER_FORWARD}, other kernels 0 | {card}", flush=True)
+          f"{launches_per_forward()}, other kernels 0 | {card}", flush=True)
     if profile:
         _device_table(run["events"], run["busy"], f"{card} training {tag}",
                       profile, "a")
@@ -1604,6 +1634,152 @@ def write_imagenet_weights(path: str, seed: int = 0) -> None:
     torch.save(sd, path)
 
 
+# EgoRear's module paths for the port's: (the start of the port's key, the
+# reference's, whether the port holds the reference's 1x1 conv (out, in, 1,
+# 1) as a Linear (out, in) weight), tried in order within a subtree.
+_EGOREAR_BLOCK = [(r"(conv|bn)([12])\.", r"\1\2.", False),
+                  (r"downsample_conv\.", "downsample.0.", False),
+                  (r"downsample_bn\.", "downsample.1.", False)]
+_EGOREAR_HEATMAP_NET = [
+    (r"encoder\.resnet\.conv1\.", "encoder.backbone.layer_s2.0.", False),
+    (r"encoder\.resnet\.bn1\.", "encoder.backbone.layer_s2.1.", False),
+    (r"encoder\.fpn\.(lateral|fuse|fpn)_(\d+)\.", r"encoder.neck.\1_convs.\2.0.", False),
+    (r"conv_heatmap\.", "conv_heatmap.", False),
+]
+_EGOREAR_TRANSFORMER = [(r"(cross_attn|spatial_attn)\.(\w+)\.", r"\1.\2.", False),
+                        (r"(fuse_mlp|norm_cross|norm_spatial|norm_ffn)\.", r"\1.", False)]
+_EGOREAR_REFINER = [
+    (r"heatmap_proj_0\.", "heatmap_proj.0.", False),
+    (r"heatmap_proj_1\.", "heatmap_proj.2.", False),
+    (r"fc_bfb\.", "fc_bfb.", False),
+    (r"fc_query\.", "fc_query.0.", False),
+    (r"joint_query_embed$", "joint_query_embed.weight", False),
+    (r"frame_feat_multi_view_pos_embed$", "frame_feat_multi_view_pos_embed", False),
+    (r"frame_feat_multi_view_proj\.", "frame_feat_multi_view_proj.", True),
+    (r"ff_proj_0\.", "frame_feat_proj_layers.0.", True),
+    (r"ff_proj_1\.", "frame_feat_proj_layers.2.", False),
+    (r"ff_proj_2\.", "frame_feat_proj_layers.4.", True),
+    (r"post_norm_(\d+)\.", r"post_norm.\1.", False),
+    (r"head_(\d+)\.Conv_0\.", r"head_layers.\1.head.0.", True),
+    (r"head_(\d+)\.Conv_1\.", r"head_layers.\1.head.3.", True),
+    (r"ff_refined_proj_(\d+)_0\.", r"frame_feat_refined_proj_layers.\1.0.", True),
+    (r"ff_refined_proj_(\d+)_1\.", r"frame_feat_refined_proj_layers.\1.3.", True),
+    (r"conv_hm_(\d+)_0\.", r"conv_heatmap_layers.\1.0.", False),
+    (r"conv_hm_(\d+)_1\.", r"conv_heatmap_layers.\1.2.", True),
+    (r"conv_hm_(\d+)_2\.", r"conv_heatmap_layers.\1.5.", True),
+    (r"conv_hm_(\d+)_3\.", r"conv_heatmap_layers.\1.7.", True),
+]
+_EGOREAR_POSE3D = [
+    (r"feat_proj\.", "feat_proj.", True),
+    (r"post_norm_(\d+)\.", r"post_norm.\1.", False),
+    (r"query_gen_(\d)\.", lambda m: f"query_gen_mlp.{2 * int(m[1])}.", False),
+    (r"conv_ff_(\d)\.", lambda m: f"conv_frame_feat.{(0, 2, 5, 7)[int(m[1])]}.", False),
+    (r"mlp_pred_(\d+)\.", r"mlp_pred.\1.0.", False),
+    (r"reg_mlp_(\d+)_(\d+)\.", lambda m: f"reg_mlp.{m[1]}.{2 * int(m[2])}.", False),
+]
+EGOREAR_REFINERS = ("heatmap_refiner_front_left", "heatmap_refiner_front_right",
+                    "heatmap_refiner_back_left", "heatmap_refiner_back_right")
+
+
+def _egorear_rule(rules, key: str):
+    """The reference's key of ``key`` by the first rule whose pattern
+    matches its start, and whether the rule adds the 1x1 conv axes."""
+    for pattern, repl, conv1x1 in rules:
+        m = re.match(pattern, key)
+        if m:
+            head = repl(m) if callable(repl) else m.expand(repl)
+            return head + key[m.end():], conv1x1
+    raise KeyError(key)
+
+
+def egorear_state_dict(sd: dict, task_name: str) -> dict:
+    """The port's state dict ``sd`` of a ``task_name`` network
+    (``heatmap``, ``heatmap_mvf_ex`` or ``pose_3d_mvf_ex``) under EgoRear's
+    module paths and layouts, as a reference Lightning checkpoint holds it
+    (before its ``network.`` prefix): the inverse of the key grammar of
+    ``egorear_tpu_torch/train/torch_convert.py``. Test scaffolding: it
+    stands in for EgoRear's released checkpoints, which the repository does
+    not hold."""
+
+    def count(pattern):  # entries of sd whose key matches ``pattern``
+        return sum(1 for k in sd if re.fullmatch(pattern, k))
+
+    def heatmap_net(key):
+        m = re.match(r"encoder\.resnet\.layer(\d)_(\d)\.", key)
+        if m:
+            stage = ("layer_s4.1", "layer_s8", "layer_s16", "layer_s32")[int(m[1]) - 1]
+            rest, _ = _egorear_rule(_EGOREAR_BLOCK, key[m.end():])
+            return f"encoder.backbone.{stage}.{m[2]}.{rest}", False
+        return _egorear_rule(_EGOREAR_HEATMAP_NET, key)
+
+    def module(base, key, rules, layers):
+        """A refiner's or the lifter's key (``base`` + ``key``): its
+        transformer layers, the Sequentials whose last Linear has no ``.0``,
+        then ``rules``."""
+        m = re.match(r"transformer_(\d+)\.ffn\.Dense_(\d+)\.", key)
+        if m:
+            last = count(re.escape(f"{base}transformer_{m[1]}.ffn.") + r"Dense_\d+\.weight") - 1
+            inner = "" if int(m[2]) == last else "0."
+            return f"{layers}.{m[1]}.ffn.layers.{m[2]}.{inner}{key[m.end():]}", False
+        m = re.match(r"transformer_(\d+)\.", key)
+        if m:
+            rest, _ = _egorear_rule(_EGOREAR_TRANSFORMER, key[m.end():])
+            return f"{layers}.{m[1]}.{rest}", False
+        if key.startswith("mlp_pred_out."):
+            n = count(re.escape(base) + r"mlp_pred_\d+\.weight")
+            return f"mlp_pred.{n}.{key[len('mlp_pred_out.'):]}", False
+        m = re.match(r"reg_mlp_(\d+)_out\.", key)
+        if m:
+            n = count(re.escape(base) + rf"reg_mlp_{m[1]}_\d+\.weight")
+            return f"reg_mlp.{m[1]}.{2 * n}.{key[m.end():]}", False
+        return _egorear_rule(rules, key)
+
+    def mvfex_key(base, key):
+        m = re.match(r"heatmap_estimator_stereo_(front|back)\.", key)
+        if m:
+            rest, conv1x1 = heatmap_net(key[m.end():])
+            return m[0] + rest, conv1x1
+        m = re.match(r"conv_heatmap_head_(front|back)\.Conv_(\d)\.", key)
+        if m:
+            idx = (0, 2, 4, 7, 9)[int(m[2])]
+            return f"conv_heatmap_layers_stereo_{m[1]}.{idx}.{key[m.end():]}", False
+        m = re.match(r"refiners\.(\d+)\.", key)
+        if m:
+            rest, conv1x1 = module(f"{base}{m[0]}", key[m.end():], _EGOREAR_REFINER,
+                                   "transformer_layers")
+            return f"{EGOREAR_REFINERS[int(m[1])]}.{rest}", conv1x1
+        raise KeyError(base + key)
+
+    out = {}
+    for key, v in sd.items():
+        if task_name == "heatmap":
+            new, conv1x1 = heatmap_net(key)
+        elif task_name == "heatmap_mvf_ex":
+            new, conv1x1 = mvfex_key("", key)
+        elif task_name == "pose_3d_mvf_ex" and key.startswith("heatmap_estimator."):
+            new, conv1x1 = mvfex_key("heatmap_estimator.", key[len("heatmap_estimator."):])
+            new = "heatmap_estimator." + new
+        elif task_name == "pose_3d_mvf_ex" and key.startswith("pose3d_estimator."):
+            base = "pose3d_estimator."
+            new, conv1x1 = module(base, key[len(base):], _EGOREAR_POSE3D, "layers")
+            new = base + new
+        else:
+            raise KeyError(f"{task_name}: {key}")
+        out[new] = v[:, :, None, None] if conv1x1 and new.endswith(".weight") else v
+    return out
+
+
+def write_egorear_ckpt(path: str, sd: dict, task_name: str,
+                       prefix: str = "network._orig_mod.") -> str:
+    """Write the port's state dict ``sd`` as an EgoRear Lightning checkpoint
+    (:func:`egorear_state_dict` under ``prefix``, in ``{"state_dict":
+    ...}``, CPU tensors); returns ``path``."""
+    ref = egorear_state_dict({k: v.detach().cpu() for k, v in sd.items()}, task_name)
+    torch.save({"state_dict": {prefix + k: v.contiguous() for k, v in ref.items()},
+                "epoch": 0, "global_step": 0}, path)
+    return path
+
+
 def stage_batch(B, views, size, gen):
     """A seeded stage-1/2 batch: ``views`` views of ``size`` px and 15-joint
     per-view heatmaps at 1/4 resolution."""
@@ -1660,7 +1836,7 @@ def stage2_launches(steps: int) -> dict:
     """Launch counts of ``steps`` stage-2 steps: the lazy forward and its
     backward once per refiner (4 views, one layer), nothing else."""
     want = dict.fromkeys(KERNELS, 0)
-    want["lazy_deform_sample"] = want["lazy_deform_sample_bwd"] = steps * LAUNCHES_MVFEX
+    want["lazy_deform_sample"] = want["lazy_deform_sample_bwd"] = steps * launches_mvfex()
     return want
 
 
@@ -1730,7 +1906,7 @@ def phase_stage2(card, workdir: str, stage1: dict, rates: dict):
           f"{run_line(run, STAGE_B, kernel_names(True))}; launches "
           f"lazy_deform_sample {run['launches']['lazy_deform_sample']}, "
           f"lazy_deform_sample_bwd {run['launches']['lazy_deform_sample_bwd']} = "
-          f"{run['steps']} x {LAUNCHES_MVFEX}, per-head kernels 0; checkpoint "
+          f"{run['steps']} x {launches_mvfex()}, per-head kernels 0; checkpoint "
           f"saved | {card}", flush=True)
     ckpt = checkpoint.save(os.path.join(workdir, "stage2"), 0, trainer.state_dict())
     rates["stage2"] = STAGE_B * 1e3 / run["ms"]
@@ -1810,7 +1986,6 @@ def cli_launches(forwards: int, backwards: int, per: int) -> dict:
 def fixed_batch_rate(trainer, batch: dict) -> float:
     """Samples/s of ``CLI_FIXED_STEPS`` train steps on one batch already on
     the card (no loader), after the fit: the same trainer's step alone."""
-    batch = {k: v for k, v in batch.items() if torch.is_tensor(v)}
     trainer.train_step(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1822,14 +1997,14 @@ def fixed_batch_rate(trainer, batch: dict) -> float:
 
 
 def cli_fit(card, name: str, root: str, workdir: str, n_items: int,
-            per: int, extra: list, synthetic: float | None):
+            per: int, extra: list, synthetic: float | None, tag: str = "[12]"):
     """``fit`` of one yaml for one epoch over ``n_items`` train items: its
     metrics.csv, finite losses, ``epoch=0.pt``, at least 2 steps, the lazy
     launches (``per`` each way a step, ``per`` forwards for the one
     validation batch); prints the epoch's samples/s through the loader
     beside the same step's on one batch on the card (their ratio is the
     loader-bound share) and ``synthetic`` (the phase-8/10 rate). Returns the
-    checkpoint and the launch counts."""
+    checkpoint, the launch counts, the trainer and that batch."""
     import csv
 
     from egorear_tpu_torch import run
@@ -1845,7 +2020,7 @@ def cli_fit(card, name: str, root: str, workdir: str, n_items: int,
     want_steps = n_items // trainer.batch_size
     want = cli_launches(steps + 1, steps, per)
     if steps != want_steps or steps < 2 or launched != want:
-        raise AssertionError(f"[12] {name}: {steps} steps launched {launched}, "
+        raise AssertionError(f"{tag} {name}: {steps} steps launched {launched}, "
                              f"expected {want_steps} >= 2 steps and {want}")
     with open(trainer.logger.path) as f:
         rows = list(csv.DictReader(f))
@@ -1855,27 +2030,29 @@ def cli_fit(card, name: str, root: str, workdir: str, n_items: int,
     if not (losses and all(math.isfinite(x) for x in losses)
             and any(v for k, v in rows[-1].items() if k.startswith("val/"))
             and os.path.exists(ckpt)):
-        raise AssertionError(f"[12] {name}: losses {losses}, rows {len(rows)}, "
+        raise AssertionError(f"{tag} {name}: losses {losses}, rows {len(rows)}, "
                              f"checkpoint {os.path.exists(ckpt)}")
     B = trainer.batch_size
     (train_ds,) = run._datasets(load_config(yaml_path, overrides).init_args,
                                 ("train",))
-    fixed = fixed_batch_rate(trainer, next(iter(DataLoader(train_ds, B,
-                                                           device=TRAIN_DEVICE))))
+    batch = {k: v for k, v in next(iter(DataLoader(train_ds, B, device=TRAIN_DEVICE))
+                                   ).items() if torch.is_tensor(v)}
+    fixed = fixed_batch_rate(trainer, batch)
     through = steps * B / seconds
     # Phase 8's stage-1 samples hold both views of a pair; the dataset's
     # items hold one, so the share is taken against the same step here.
     against = (f", phase 8/10's synthetic b64 {synthetic:.1f} samples/s"
                if synthetic else "")
-    print(f"[12] fit {name} B={B}: {steps} steps in {seconds:.3f} s through the "
-          f"loader ({through:.1f} samples/s, first step included), one batch on "
-          f"the card {fixed:.1f} samples/s{against}; loader-bound share "
+    print(f"{tag} fit {name} B={B}: {steps} steps in {seconds:.3f} s through the "
+          f"loader ({through:.1f} samples/s, {1e3 * seconds / steps:.1f} ms/step, "
+          f"first step included), one batch on the card {fixed:.1f} samples/s "
+          f"({B * 1e3 / fixed:.1f} ms/step){against}; loader-bound share "
           f"{100 * max(0.0, 1 - through / fixed):.1f} %; launches lazy_deform_sample "
           f"{launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
           f"{launched['lazy_deform_sample_bwd']} = ({steps} steps + 1 val batch) "
           f"x {per}, {steps} x {per}; {key} at the epoch's end {losses[-1]:.4f} "
           f"| {card}", flush=True)
-    return ckpt, launched
+    return ckpt, launched, trainer, batch
 
 
 def phase_cli(card, workdir: str, rates: dict) -> dict:
@@ -1923,75 +2100,226 @@ def phase_cli(card, workdir: str, rates: dict) -> dict:
 
     stage1 = {}
     for pair in ("front", "back"):
-        stage1[pair], launched = cli_fit(
+        stage1[pair], launched, _, _ = cli_fit(
             card, f"ego4view_syn_heatmap_stereo_{pair}", root, workdir,
             2 * CLI_TRAIN_FRAMES, 0, [], rates.get(f"stage1_{pair}"))
         add(launched)
     grafts = []
     for pair in ("front", "back"):
         grafts += [f"--model.{GRAFT_KEYS[pair]}", stage1[pair]]
-    stage2, launched = cli_fit(card, "ego4view_syn_heatmap_mvfex-n1_jqa", root,
-                               workdir, CLI_TRAIN_FRAMES, LAUNCHES_MVFEX, grafts,
+    stage2, launched, _, _ = cli_fit(card, "ego4view_syn_heatmap_mvfex-n1_jqa", root,
+                               workdir, CLI_TRAIN_FRAMES, launches_mvfex(), grafts,
                                rates.get("stage2"))
     add(launched)
-    stage3, launched = cli_fit(card, "ego4view_syn_pose3d", root, workdir,
-                               CLI_TRAIN_FRAMES, LAUNCHES_PER_FORWARD,
+    stage3, launched, _, _ = cli_fit(card, "ego4view_syn_pose3d", root, workdir,
+                               CLI_TRAIN_FRAMES, launches_per_forward(),
                                ["--model.heatmap_estimator_mvf_pretrained", stage2],
                                None)
     add(launched)
 
     evals = ["--config", os.path.join(CONFIGS, "ego4view_syn_pose3d.yaml"),
              "--model.data_root", root, "--ckpt_path", stage3]
-    for sub, mode in (("test", "test"), ("validate", "val")):
-        argv = [sub] + evals + ["--trainer.save_dir", os.path.join(workdir, "cli", sub),
-                                "--device", TRAIN_DEVICE] + CLI_OVERRIDES
-        metrics, launched, printed = cli_run(argv)
-        B = load_config(argv[2], argv[3:]).init_args["batch_size"]
-        want = cli_launches(-(-CLI_EVAL_FRAMES // B), 0, LAUNCHES_PER_FORWARD)
-        names = [f"{mode}/{m}" for m in POSE_METRICS]
-        if (launched != want or list(metrics) != names
-                or json.loads(printed) != {k: round(float(v), 6)
-                                           for k, v in metrics.items()}
-                or not all(math.isfinite(v) for v in metrics.values())):
-            raise AssertionError(f"[12] {sub}: launched {launched} (expected "
-                                 f"{want}), printed {printed!r}")
+    for sub in ("test", "validate"):
+        _, launched = cli_eval(card, "[12]", sub, evals, workdir, 4, CLI_EVAL_FRAMES)
         add(launched)
-        print(f"[12] {sub} on the stage-3 checkpoint ({CLI_EVAL_FRAMES} frames "
-              f"in batches of {B}, the last padded): " + ", ".join(
-                  f"{k} {v:.4f}" for k, v in metrics.items())
-              + f"; launches lazy_deform_sample {launched['lazy_deform_sample']} "
-              f"| {card}", flush=True)
+    add(cli_predict_vs_cpu(card, "[12]", evals, workdir, 4, CLI_EVAL_FRAMES))
+    print(f"[12] CLI chain {time.perf_counter() - t0:.1f} s (tree {t_tree:.1f} s) "
+          f"| {card}", flush=True)
+    return dict(launches=total, root=root, stage1=stage1, stage2=stage2)
+
+
+def cli_eval(card, tag: str, sub: str, evals: list, workdir: str, views: int,
+             n_eval: int, label: str = ""):
+    """``test`` or ``validate`` (``sub``) of a stage-3 yaml through the CLI
+    (``evals``: its config, data root and checkpoint) on ``n_eval`` frames:
+    the JAX metric names, printed as JSON, finite, and exactly
+    ``launches_per_forward(views)`` lazy launches a batch. Returns the
+    metrics and the launch counts."""
+    from egorear_tpu_torch.config.loader import load_config
+
+    mode = "test" if sub == "test" else "val"
+    argv = [sub] + evals + ["--trainer.save_dir", os.path.join(
+        workdir, "cli", f"{tag[1:-1]}_{sub}{label}"), "--device", TRAIN_DEVICE
+        ] + CLI_OVERRIDES
+    metrics, launched, printed = cli_run(argv)
+    B = load_config(argv[2], argv[3:]).init_args["batch_size"]
+    want = cli_launches(-(-n_eval // B), 0, launches_per_forward(views))
+    names = [f"{mode}/{m}" for m in POSE_METRICS]
+    if (launched != want or list(metrics) != names
+            or json.loads(printed) != {k: round(float(v), 6) for k, v in metrics.items()}
+            or not all(math.isfinite(v) for v in metrics.values())):
+        raise AssertionError(f"{tag} {sub}: launched {launched} (expected {want}), "
+                             f"printed {printed!r}")
+    print(f"{tag} {sub} {os.path.basename(evals[1])} on {os.path.basename(evals[-1])} "
+          f"({n_eval} frames in batches of {B}, the last padded): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in metrics.items())
+          + f"; launches lazy_deform_sample {launched['lazy_deform_sample']} = "
+          f"{-(-n_eval // B)} x {launches_per_forward(views)} | {card}", flush=True)
+    return metrics, launched
+
+
+def cli_predict_vs_cpu(card, tag: str, evals: list, workdir: str, views: int,
+                       n_frames: int) -> dict:
+    """``predict`` (b4, the last batch padded) of a stage-3 yaml on the card
+    and with ``--device cpu`` (the plain versions), held to each other
+    within phase 3's ``preds_3d`` tolerance; the card's lazy launches exact.
+    Returns the launch counts of both runs."""
+    import numpy as np
 
     preds, seconds = {}, {}
-    n_batches = -(-CLI_EVAL_FRAMES // CLI_PREDICT_B)
+    total = dict.fromkeys(KERNELS, 0)
     for device in ("cuda", "cpu"):
         argv = (["predict"] + evals + CLI_OVERRIDES
                 + ["--model.batch_size", str(CLI_PREDICT_B), "--trainer.save_dir",
-                   os.path.join(workdir, "cli", f"predict_{device}")]
+                   os.path.join(workdir, "cli", f"predict_{device}_{tag[1:-1]}")]
                 + ["--device", TRAIN_DEVICE if device == "cuda" else "cpu"])
+        n_batches = -(-n_frames // CLI_PREDICT_B)
         t1 = time.perf_counter()
         path, launched, printed = cli_run(argv)
         seconds[device] = time.perf_counter() - t1
         want = cli_launches(n_batches if device == "cuda" else 0, 0,
-                            LAUNCHES_PER_FORWARD)
+                            launches_per_forward(views))
         if launched != want or json.loads(printed) != {"predictions": path}:
-            raise AssertionError(f"[12] predict on {device}: launched {launched}, "
+            raise AssertionError(f"{tag} predict on {device}: launched {launched}, "
                                  f"expected {want}; printed {printed!r}")
-        add(launched)
+        for k, v in launched.items():
+            total[k] += v
         preds[device] = np.load(path, allow_pickle=True)
     got, want = preds["cuda"], preds["cpu"]
     errs = {k: float(np.abs(got[k] - want[k]).max()) for k in ("final", "proposal")}
-    print(f"[12] predict B={CLI_PREDICT_B} on the card ({seconds['cuda']:.1f} s, "
-          f"{n_batches} batches, the last padded) vs --device cpu (plain "
-          f"versions, {seconds['cpu']:.1f} s): preds_3d max-abs cm {errs} (tol "
-          f"{E2E_P3D_TOL:g}), {got['final'].shape} each | {card}", flush=True)
+    print(f"{tag} predict {os.path.basename(evals[1])} B={CLI_PREDICT_B} on the card "
+          f"({seconds['cuda']:.1f} s, {n_batches} batches, the last padded) vs "
+          f"--device cpu (plain versions, {seconds['cpu']:.1f} s): preds_3d max-abs "
+          f"cm {errs} (tol {E2E_P3D_TOL:g}), {got['final'].shape} each | {card}",
+          flush=True)
     if not (list(got["frame_path"]) == list(want["frame_path"])
-            and got["final"].shape == (CLI_EVAL_FRAMES, 16, 3)
+            and got["final"].shape == (n_frames, 16, 3)
             and np.isfinite(got["final"]).all()
             and max(errs.values()) <= E2E_P3D_TOL):
-        raise AssertionError("[12] predict on the card disagrees with the CPU")
-    print(f"[12] CLI chain {time.perf_counter() - t0:.1f} s (tree {t_tree:.1f} s) "
-          f"| {card}", flush=True)
+        raise AssertionError(f"{tag} predict on the card disagrees with the CPU")
+    return total
+
+
+# Phase 13: the stereo-pair (V = 2) and real-world yamls through the CLI, at
+# full width: 13a on phase 12's syn tree, 13b on a real-world tree of
+# 872-px PNGs (64 train frames: 2 steps at the stage-3 yamls' b32; 6
+# validation and 6 test frames) whose sequences carry their device-to-camera
+# transforms. The stage-2 checkpoints reach stage 3 as EgoRear Lightning
+# ``.ckpt`` files (write_egorear_ckpt).
+RW_TRAIN_FRAMES, RW_EVAL_FRAMES = 64, 6
+
+
+def check_ckpt_graft(tag: str, name: str, root: str, ckpt: str, source: str) -> int:
+    """``heatmap_estimator_mvf_pretrained`` of yaml ``name`` taken as the
+    EgoRear ``.ckpt`` ``ckpt`` (as ``run.main fit`` grafts it): the grafted
+    leaves bitwise those of ``source``, the port checkpoint the file was
+    written from (``num_batches_tracked``, which the import sets to 0 as the
+    JAX package drops it, aside). Returns the number of leaves."""
+    from egorear_tpu_torch import run
+    from egorear_tpu_torch.config.loader import load_config
+    from egorear_tpu_torch.train import checkpoint
+
+    cfg = load_config(os.path.join(CONFIGS, f"{name}.yaml"),
+                      ["--model.data_root", root, "--model.heatmap_estimator_mvf_pretrained",
+                       ckpt] + CLI_OVERRIDES)
+    task, args = run.build_task(cfg, TRAIN_DEVICE)
+    run.apply_pretrained(task, cfg, args)
+    want = checkpoint.restore(source, map_location=TRAIN_DEVICE)["model"]
+    got = checkpoint.sub_state(task.model.state_dict(), "heatmap_estimator")
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{tag} {name}: the .ckpt graft's keys differ from "
+                             f"{source}'s")
+    leaves = [k for k in got if not k.endswith("num_batches_tracked")]
+    for k in leaves:
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"{tag} {name}: grafted heatmap_estimator.{k} "
+                                 f"differs from the checkpoint")
+    return len(leaves)
+
+
+def phase_cli_rigs(card, workdir: str, cli: dict) -> dict:
+    """The stereo-pair and real-world yamls through the CLI on the card.
+
+    13a: ``fit`` of the V = 2 stage 2 (grafted from phase 12's stage-1 front
+    checkpoint; 2 + 2 lazy launches a step) and stage 3 (grafted from it;
+    5 + 5), a kept step of each (every launch held against its plain
+    version, kernel batch 2 B), ``test`` on the stage-3 checkpoint (5 a
+    batch). 13b: a real-world tree; ``fit`` of ``ego4view_rw_pose3d`` (7 +
+    7, from phase 12's stage-2 checkpoint) and ``ego4view_rw_pose3d_stereo_front``
+    (5 + 5, from 13a's), each taking the stage-2 checkpoint as an EgoRear
+    ``.ckpt`` (the grafted leaves bitwise), with a kept step; ``test`` from
+    the stage-3 result as ``.pt`` and as ``.ckpt`` (identical metrics);
+    ``predict`` of the V = 2 yaml on the card vs ``--device cpu``. Returns
+    the launch counts summed over the phase."""
+    from egorear_tpu_torch.data.synthetic import make_synthetic_dataset
+    from egorear_tpu_torch.train import checkpoint
+
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(launched):
+        for k, v in launched.items():
+            total[k] += v
+
+    def fit(tag, name, root, n_items, views, per, extra, seed):
+        ckpt, launched, trainer, batch = cli_fit(card, name, root, workdir, n_items,
+                                                 per, extra, None, tag)
+        add(launched)
+        gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(seed)
+        kept_step(trainer.task, trainer, batch, gen, cli_launches(1, 1, per), tag, card)
+        print(f"{tag} kept step of {name}: {per} + {per} launches at kernel batch "
+              f"{views} x {batch['img'].shape[0]} held against the plain versions "
+              f"| {card}", flush=True)
+        return ckpt
+
+    t0 = time.perf_counter()
+    syn = cli["root"]
+    stage2 = fit("[13a]", "ego4view_syn_heatmap_mvfex-n1_jqa_stereo_front", syn,
+                 CLI_TRAIN_FRAMES, 2, launches_mvfex(2),
+                 [f"--model.{GRAFT_KEYS['front']}", cli["stage1"]["front"]], 21)
+    stage3 = fit("[13a]", "ego4view_syn_pose3d_stereo_front", syn, CLI_TRAIN_FRAMES,
+                 2, launches_per_forward(2),
+                 ["--model.heatmap_estimator_mvf_pretrained", stage2], 22)
+    _, launched = cli_eval(card, "[13a]", "test", [
+        "--config", os.path.join(CONFIGS, "ego4view_syn_pose3d_stereo_front.yaml"),
+        "--model.data_root", syn, "--ckpt_path", stage3], workdir, 2, CLI_EVAL_FRAMES)
+    add(launched)
+    print(f"[13a] V = 2 chain {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+
+    t1 = time.perf_counter()
+    rw = make_synthetic_dataset(
+        os.path.join(workdir, "ego4view_rw"), "rw", frames_per_seq=RW_TRAIN_FRAMES,
+        eval_frames_per_seq=RW_EVAL_FRAMES, image_size=CLI_IMAGE_SIZE,
+        write_heatmaps=True, draw_pose=True, seed=1)
+    print(f"[13b] real-world tree {RW_TRAIN_FRAMES} + 2 x {RW_EVAL_FRAMES} frames x 4 "
+          f"views of {CLI_IMAGE_SIZE}-px PNGs with heatmaps and each sequence's "
+          f"transforms in {time.perf_counter() - t1:.1f} s | {card}", flush=True)
+    for name, views, source, seed in (("ego4view_rw_pose3d", 4, cli["stage2"], 23),
+                                      ("ego4view_rw_pose3d_stereo_front", 2, stage2, 24)):
+        mvf = write_egorear_ckpt(os.path.join(workdir, f"{name}_stage2.ckpt"),
+                                 checkpoint.restore(source)["model"], "heatmap_mvf_ex")
+        n = check_ckpt_graft("[13b]", name, rw, mvf, source)
+        print(f"[13b] {name}: heatmap_estimator_mvf_pretrained as an EgoRear .ckpt, "
+              f"{n} grafted leaves bitwise the stage-2 checkpoint's | {card}", flush=True)
+        result = fit("[13b]", name, rw, RW_TRAIN_FRAMES, views,
+                     launches_per_forward(views),
+                     ["--model.heatmap_estimator_mvf_pretrained", mvf], seed)
+        as_ckpt = write_egorear_ckpt(os.path.join(workdir, f"{name}_stage3.ckpt"),
+                                     checkpoint.restore(result)["model"], "pose_3d_mvf_ex")
+        evals = ["--config", os.path.join(CONFIGS, f"{name}.yaml"),
+                 "--model.data_root", rw, "--ckpt_path"]
+        metrics = {}
+        for path, label in ((result, "_pt"), (as_ckpt, "_ckpt")):
+            metrics[label], launched = cli_eval(card, "[13b]", "test", evals + [path],
+                                                workdir, views, RW_EVAL_FRAMES, label)
+            add(launched)
+        if metrics["_pt"] != metrics["_ckpt"]:
+            raise AssertionError(f"[13b] {name}: test from the .ckpt {metrics['_ckpt']} "
+                                 f"differs from the .pt's {metrics['_pt']}")
+        print(f"[13b] {name}: test from the stage-3 result as .ckpt identical to the "
+              f".pt's | {card}", flush=True)
+    add(cli_predict_vs_cpu(card, "[13b]", evals + [as_ckpt], workdir, 2, RW_EVAL_FRAMES))
+    print(f"[13b] real-world chain {time.perf_counter() - t1:.1f} s; phase 13 "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
     return total
 
 
@@ -2059,7 +2387,8 @@ def main() -> int:
             stage2, stage2_launched = timed("10", phase_stage2, card, workdir,
                                             stage1, rates)
             timed("11", phase_stage3_graft, card, stage2)
-            cli_launched = timed("12", phase_cli, card, workdir, rates)
+            cli = timed("12", phase_cli, card, workdir, rates)
+            rigs_launched = timed("13", phase_cli_rigs, card, workdir, cli)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[7] main-path launches: serving forward lazy_deform_sample "
@@ -2071,9 +2400,17 @@ def main() -> int:
           f"{train[False]['deform_sample_bwd']}; stage-2 training "
           f"lazy_deform_sample {stage2_launched['lazy_deform_sample']}, "
           f"lazy_deform_sample_bwd {stage2_launched['lazy_deform_sample_bwd']}; "
-          f"CLI chain lazy_deform_sample {cli_launched['lazy_deform_sample']}, "
-          f"lazy_deform_sample_bwd {cli_launched['lazy_deform_sample_bwd']} "
-          f"| {card}", flush=True)
+          f"CLI chain lazy_deform_sample {cli['launches']['lazy_deform_sample']}, "
+          f"lazy_deform_sample_bwd {cli['launches']['lazy_deform_sample_bwd']}; "
+          f"V = 2 and real-world CLI lazy_deform_sample "
+          f"{rigs_launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
+          f"{rigs_launched['lazy_deform_sample_bwd']} | {card}", flush=True)
+    # Each main path's counts, zeroed before and read after its own run;
+    # ``launches`` is their sum.
+    by_path = {"serving_lazy": serve[True], "serving_reference": serve[False],
+               "training_lazy": train[True], "training_reference": train[False],
+               "stage2_training": stage2_launched, "cli_chain": cli["launches"],
+               "cli_v2_and_real_world": rigs_launched}
     print("[7] seconds by phase: "
           + " ".join(f"{k}={v:.1f}" for k, v in seconds.items())
           + f"; total {time.perf_counter() - t0:.1f} | {card}", flush=True)
@@ -2082,8 +2419,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda",
              source=f"egorear_tpu_torch/csrc/{name}.cu", replaces=replaces,
-             launches=train[order == "lazy"][name], **records[name])
-        for name, (order, replaces) in KERNELS.items()]}))
+             launches=sum(r[name] for r in by_path.values()),
+             launches_by_path={p: r[name] for p, r in by_path.items()},
+             **records[name])
+        for name, (_, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,7 +22,8 @@ FIRST line of its split file (``lines[0:1]``) unless ``all_split_lines``.
 
 Not ported: the native decoder (``use_native_loader=True``) and the uint8
 samples of the on-device preprocessing (``device_preprocess=True``), both
-of which raise (ROADMAP Queue A 5).
+of which raise (ROADMAP Queue A, host decode and ``img_u8`` device
+preprocessing).
 """
 
 from __future__ import annotations
@@ -100,11 +101,12 @@ class _Ego4ViewBase:
         if use_native_loader:
             raise NotImplementedError(
                 "use_native_loader: the native JPEG/PNG decoder is not ported "
-                "(ROADMAP Queue A 5); images are decoded with PIL")
+                "(ROADMAP Queue A, host decode); images are decoded with PIL")
         if device_preprocess:
             raise NotImplementedError(
                 "device_preprocess: the uint8 on-device preprocessing "
-                "(data/preprocess.py) is not ported (ROADMAP Queue A 5)")
+                "(data/preprocess.py) is not ported (ROADMAP Queue A, img_u8 "
+                "device preprocessing)")
         # Every decoded sample stays resident (about len x sample size):
         # epochs after the first skip the decode.
         self._cache: Optional[dict] = {} if cache_in_memory else None

@@ -13,7 +13,7 @@ The batch-index sequence is the JAX loader's: ``np.random.default_rng(seed
 + epoch)`` shuffles the indices, ``drop_last`` drops a partial last batch,
 and ``pad_last`` fills it by repeating its last index and reports the true
 count in ``__valid_n__`` (a host int). Multi-process slicing of each batch
-is DDP's (ROADMAP Queue A 8).
+is DDP's (ROADMAP Queue A, DDP over NCCL).
 """
 
 from __future__ import annotations

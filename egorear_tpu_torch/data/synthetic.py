@@ -1,5 +1,5 @@
 """Synthetic Ego4View-style dataset tree (the JAX package's
-``data/synthetic.py``, the syn variant).
+``data/synthetic.py``): the syn variant and the real-world one (``rw``).
 
 Writes a tree in the reference's path grammar (images, frame JSONs with the
 2D and 3D joints, split files) so that ``fit``/``test``/``predict`` run end
@@ -10,8 +10,11 @@ calibration (``CameraRig.project`` on the CPU, ``chained=False``), so
 images, heatmaps and poses agree geometrically. The random draws follow the
 JAX generator's order, so one seed gives the same poses, noise and files.
 
-The real-world variant (``variant="rw"``) needs the rw rig, which is not
-ported, and raises.
+The real-world variant (``variant="rw"``) writes the rw grammar: split lines
+``2024-01-0<c>/S<c>/seq<s>-<split>``, frame JSONs under ``json_smplx``, PNG
+images, and per sequence ``<seqdir>_metadata.json`` with its device-to-camera
+transforms (identity rotations, translations of a few centimetres drawn
+after the poses), through which its 2D joints are projected.
 """
 
 from __future__ import annotations
@@ -34,9 +37,15 @@ from egorear_tpu_torch.ops.heatmap import render_gaussian_targets_np
 _BLOB_REACH_SIGMAS = 6.0
 
 
-def _project_np(rig: CameraRig, pts_bj3: np.ndarray) -> np.ndarray:
-    """(B, J, 3) cm -> (B, V, J, 2) pixel coordinates of the 872-px frame."""
-    pts2d, _, _ = rig.project(torch.from_numpy(pts_bj3.astype(np.float32)))
+def _project_np(rig: CameraRig, pts_bj3: np.ndarray, mats=None) -> np.ndarray:
+    """(B, J, 3) cm -> (B, V, J, 2) pixel coordinates of the 872-px frame;
+    the real-world rig projects through the sequence's (V, 4, 4) ``mats``."""
+    ctm = None
+    if rig.is_rw:
+        B = pts_bj3.shape[0]
+        ctm = torch.from_numpy(np.broadcast_to(
+            mats[None], (B, *mats.shape)).astype(np.float32))
+    pts2d, _, _ = rig.project(torch.from_numpy(pts_bj3.astype(np.float32)), ctm)
     return pts2d.numpy() * 872.0
 
 
@@ -180,13 +189,13 @@ def make_synthetic_dataset(
     ``<seq>/visibility.npy``) while the labels stay. Images are finished
     and encoded on a thread pool; the generator is drawn in order.
     """
-    if variant != "syn":
-        raise NotImplementedError(
-            f"variant {variant!r}: the real-world rig is not ported (ROADMAP "
-            f"Queue A 7)")
+    if variant not in ("syn", "rw"):
+        raise ValueError(f"variant {variant!r}: syn or rw")
     rng = np.random.default_rng(seed)
-    rig = CameraRig.from_calib_file("ego4view_syn", chained=False, device="cpu")
-    json_dir = "json_smplx_gendered"
+    rig = CameraRig.from_calib_file(f"ego4view_{variant}", chained=False,
+                                    device="cpu")
+    json_dir = "json_smplx_gendered" if variant == "syn" else "json_smplx"
+    ext = ".jpg" if variant == "syn" else ".png"
     workers = os.cpu_count() or 1
     with cf.ThreadPoolExecutor(workers) as pool:
         # Each job holds an image's noise: at most 2 per worker in flight.
@@ -196,10 +205,16 @@ def make_synthetic_dataset(
                         else eval_frames_per_seq)
             lines = []
             for ci in range(num_chars):
-                char = f"rp_{split}_{ci:02d}"
-                lines.append(char)
-                for si in range(num_seqs):
-                    seq_dir = os.path.join(root, char, f"seq_{si}")
+                if variant == "syn":
+                    char = f"rp_{split}_{ci:02d}"
+                    seqs = [os.path.join(char, f"seq_{si}") for si in range(num_seqs)]
+                    lines.append(char)
+                else:
+                    seqs = [os.path.join(f"2024-01-0{ci + 1}", f"S{ci}",
+                                         f"seq{si}-{split}") for si in range(num_seqs)]
+                    lines.extend(seqs)
+                for seq_rel in seqs:
+                    seq_dir = os.path.join(root, seq_rel)
                     os.makedirs(os.path.join(seq_dir, json_dir), exist_ok=True)
                     if skeleton:
                         poses = sample_skeleton_poses(rng, n_frames)
@@ -210,16 +225,32 @@ def make_synthetic_dataset(
                         poses = base + rng.normal(scale=25.0, size=(n_frames, 16, 3))
                     visibility = (sample_pair_visibility(rng, n_frames, occlusion)
                                   if occlusion > 0 else None)
-                    pts2d = _project_np(rig, poses)  # (F, V, J, 2)
+                    mats = None
+                    if variant == "rw":
+                        mats = _write_rw_metadata(seq_dir, rng)
+                    pts2d = _project_np(rig, poses, mats)  # (F, V, J, 2)
                     if visibility is not None:
                         np.save(os.path.join(seq_dir, "visibility.npy"), visibility)
-                    _write_frames(jobs, seq_dir, json_dir, poses, pts2d,
+                    _write_frames(jobs, seq_dir, json_dir, ext, poses, pts2d,
                                   visibility, rng, image_size, draw_pose,
                                   write_heatmaps)
             with open(os.path.join(root, f"{split}.txt"), "w") as f:
                 f.write("\n".join(lines) + "\n")
         jobs.drain(0)
     return root
+
+
+def _write_rw_metadata(seq_dir: str, rng) -> np.ndarray:
+    """Draw a sequence's (4, 4, 4) device-to-camera transforms (identity
+    rotations, translations of sd 2 cm, metres) and write them to
+    ``<seq_dir>_metadata.json``, as the real-world tree holds them."""
+    mats = np.tile(np.eye(4, dtype=np.float64), (4, 1, 1))
+    mats[:, :3, 3] = rng.normal(scale=0.02, size=(4, 3))
+    meta = {"coord_transformation_matrix": {
+        f"device_to_{c}": mats[i].tolist() for i, c in enumerate(CAMERA_NAMES)}}
+    with open(seq_dir + "_metadata.json", "w") as f:
+        json.dump(meta, f)
+    return mats
 
 
 class _Jobs:
@@ -238,7 +269,7 @@ class _Jobs:
         self.pending.append(self.pool.submit(fn, *args))
 
 
-def _write_frames(jobs: _Jobs, seq_dir, json_dir, poses, pts2d, visibility,
+def _write_frames(jobs: _Jobs, seq_dir, json_dir, ext, poses, pts2d, visibility,
                   rng, image_size, draw_pose, write_heatmaps) -> None:
     """Write one sequence's frame JSONs and heatmaps; draw its images'
     random parts in order and hand the rest to ``jobs``."""
@@ -262,7 +293,7 @@ def _write_frames(jobs: _Jobs, seq_dir, json_dir, poses, pts2d, visibility,
             else:
                 noise = rng.integers(0, 255, size=(image_size, image_size, 3),
                                      dtype=np.uint8)
-            jobs.submit(_finish_image, os.path.join(img_dir, frame + ".jpg"),
+            jobs.submit(_finish_image, os.path.join(img_dir, frame + ext),
                         noise, pts2d[fi, vi] * (image_size / 872.0),
                         None if visibility is None else visibility[fi, vi])
 

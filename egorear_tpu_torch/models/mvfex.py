@@ -1,7 +1,9 @@
 """MVFex: multi-view feature-exchange heatmap refinement with joint-query
 adaptation (the JAX package's ``models/mvfex.py``, flagship branch).
 
-Ported branch: 4 views; JQA joint queries; deformable cross-attention into
+Ported branch: any number of views (the 4-view rig: a stereo-front and a
+stereo-back estimator and head; the front stereo pair alone, V = 2: the
+front estimator and head only); JQA joint queries; deformable cross-attention into
 every view's features, in the lazy order (``lazy_deform``, the flagship:
 raw features sampled, projected after) or the reference order (the memory
 materialised on the grid); the conv-stack heatmap heads
@@ -271,8 +273,13 @@ class ConvHeatmapHead(nn.Module):
 
 
 class HeatmapMVFexNet(nn.Module):
-    """Stage 2: stereo-front/back backbones, conv-stack initial heatmaps,
-    argmax anchors and the V refiners.
+    """Stage 2: the stereo estimators' backbones, conv-stack initial
+    heatmaps, argmax anchors and the V refiners.
+
+    With V >= 3 views the first two are the front stereo pair and the rest
+    the back one, each with its own estimator and head (the 4-view rig);
+    with fewer (the front pair alone, V = 2) every view goes through the
+    front estimator and head, and the back ones are not built.
 
     ``forward`` returns ``(list_heatmap, list_feat)``: heatmaps batch-major
     (B, V, J, h, w); frame features view-major folded (V*B, Cin, h, w).
@@ -280,48 +287,53 @@ class HeatmapMVFexNet(nn.Module):
 
     def __init__(self, cfg: MVFexNetCfg):
         super().__init__()
-        if cfg.num_views != 4:
-            raise NotImplementedError(f"num_views={cfg.num_views}: only the "
-                                      f"4-view rig is ported")
         if cfg.mvf.use_1by1_conv:
             raise NotImplementedError("use_1by1_conv is not ported")
         self.cfg = cfg
         enc = cfg.encoder
         V = cfg.num_views
+        self.has_back = V >= 3
         self.heatmap_estimator_stereo_front = HeatmapNet(
             enc.out_stride, enc.fpn_channels, enc.bn_folded)
-        self.heatmap_estimator_stereo_back = HeatmapNet(
-            enc.out_stride, enc.fpn_channels, enc.bn_folded)
+        if self.has_back:
+            self.heatmap_estimator_stereo_back = HeatmapNet(
+                enc.out_stride, enc.fpn_channels, enc.bn_folded)
         self.refiners = nn.ModuleList(
             MVFexRefiner(V, cfg.num_heatmap, cfg.feat_shape,
                          cfg.detach_heatmap_feat, cfg.mvf)
             for _ in range(V))
         self.conv_heatmap_head_front = ConvHeatmapHead(cfg.mvf.input_dims,
                                                        cfg.num_heatmap)
-        self.conv_heatmap_head_back = ConvHeatmapHead(cfg.mvf.input_dims,
-                                                      cfg.num_heatmap)
+        if self.has_back:
+            self.conv_heatmap_head_back = ConvHeatmapHead(cfg.mvf.input_dims,
+                                                          cfg.num_heatmap)
 
     def _estimator_features(self, img):
-        """Front/back backbone features: the view-major (V*B, C, h, w) stack,
-        the pooled (B, V, 512) backbone bottoms and the two halves."""
+        """Backbone features: the view-major (V*B, C, h, w) stack, the pooled
+        (B, V, 512) backbone bottoms and the per-estimator halves (the back
+        one None without a back pair)."""
         B = img.shape[0]
+
+        def pooled(p):  # (n*B, 512, h, w) -> (B, n, 512)
+            return p.mean(dim=(2, 3)).reshape(-1, B, p.shape[1]).transpose(0, 1)
+
+        if not self.has_back:  # every view through the front estimator
+            feat_f, pyr_f = self.heatmap_estimator_stereo_front.backbone_features(img)
+            return feat_f, pooled(pyr_f[-1]), (feat_f, None)
         feat_f, pyr_f = self.heatmap_estimator_stereo_front.backbone_features(img[:, 0:2])
         feat_b, pyr_b = self.heatmap_estimator_stereo_back.backbone_features(img[:, 2:])
-
-        def pooled(p):  # (2B, 512, h, w) -> (B, 2, 512)
-            return p.mean(dim=(2, 3)).reshape(2, B, -1).transpose(0, 1)
-
         feat = torch.cat([feat_f, feat_b], dim=0)
         bfb = torch.cat([pooled(pyr_f[-1]), pooled(pyr_b[-1])], dim=1)
         return feat, bfb, (feat_f, feat_b)
 
     def _heatmaps_from_feat(self, feat_f, feat_b):
-        """Conv-stack heads on the view-major halves -> (B, V, J, h, w)."""
-        hm_f = self.conv_heatmap_head_front(feat_f)
-        hm_b = self.conv_heatmap_head_back(feat_b)
-        B = hm_f.shape[0] // 2
-        hm = torch.cat([hm_f.reshape(2, B, *hm_f.shape[1:]),
-                        hm_b.reshape(2, B, *hm_b.shape[1:])], dim=0)
+        """Conv-stack heads on the view-major halves (the back one None
+        without a back pair) -> (B, V, J, h, w)."""
+        B = feat_f.shape[0] // (2 if self.has_back else self.cfg.num_views)
+        hms = [self.conv_heatmap_head_front(feat_f)]
+        if feat_b is not None:
+            hms.append(self.conv_heatmap_head_back(feat_b))
+        hm = torch.cat([h.reshape(-1, B, *h.shape[1:]) for h in hms], dim=0)
         return hm.transpose(0, 1)
 
     def get_anchors_2d(self, heatmap):
@@ -348,7 +360,8 @@ class HeatmapMVFexNet(nn.Module):
         with torch.set_grad_enabled(cfg.full_training and torch.is_grad_enabled()):
             feat_init, bfb_init, (feat_f, feat_b) = self._estimator_features(img)
         if cfg.use_pred_heatmap_init:
-            hm_init = self._heatmaps_from_feat(feat_f.detach(), feat_b.detach())
+            hm_init = self._heatmaps_from_feat(
+                feat_f.detach(), None if feat_b is None else feat_b.detach())
             hm_for_refine = hm_init.detach()
             if cfg.no_detach_feat_init:
                 feat, bfb = feat_init, bfb_init

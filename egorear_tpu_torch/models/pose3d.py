@@ -2,8 +2,9 @@
 (the JAX package's ``models/pose3d.py``, flagship branch).
 
 ``Pose3DLifter``: a conv-downsample MLP proposes 3D joints; the rig projects
-them (the reference's chained offsets, ``CameraRig.project``) into every
-view; ``num_former_layers`` deformable transformer layers (lazy or
+them (``CameraRig.project``: the reference's chained offsets on the
+synthetic rig, the per-sample ``coord_trans_mat`` on the real-world one)
+into every view; ``num_former_layers`` deformable transformer layers (lazy or
 reference order, per ``lazy_deform``) attend at those anchors and each regresses a 3D offset from the mutated anchor state.
 The avgpool / heatmap proposals and the normalized-MLP output are not
 ported and raise NotImplementedError.
@@ -11,7 +12,7 @@ ported and raise NotImplementedError.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -95,10 +96,12 @@ class Pose3DLifter(nn.Module):
             y = self.mlp_drop(F.gelu(getattr(self, f"mlp_pred_{i}")(y)))
         return self.mlp_pred_out(y).reshape(B, self.cfg.num_joints, 3)
 
-    def forward(self, frame_feats_init, frame_feats_final, rig: CameraRig
-                ) -> List[torch.Tensor]:
-        """frame_feats_* (V*B, Cin, h, w), view-major. Returns
-        [proposal, refined_0, ..., refined_{L-1}], each (B, J, 3) cm."""
+    def forward(self, frame_feats_init, frame_feats_final, rig: CameraRig,
+                coord_trans_mat: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """frame_feats_* (V*B, Cin, h, w), view-major; ``coord_trans_mat``
+        (B, V, 4, 4) the real-world rig's device-to-camera transforms.
+        Returns [proposal, refined_0, ..., refined_{L-1}], each (B, J, 3)
+        cm."""
         cfg = self.cfg
         J = cfg.num_joints
         frame_feats = frame_feats_init if self.use_pred_heatmap_init else frame_feats_final
@@ -115,7 +118,8 @@ class Pose3DLifter(nn.Module):
         mlp_pred = self._proposal(frame_feats_final)
         B = mlp_pred.shape[0]
 
-        anchors_2d, anchors_valid, anchors_mut = rig.project(mlp_pred.detach())
+        anchors_2d, anchors_valid, anchors_mut = rig.project(
+            mlp_pred.detach(), coord_trans_mat)
         dtype = feat_tokens.dtype
         anchors_2d = anchors_2d.to(dtype)  # sampling positions in the activation dtype
 
@@ -140,14 +144,11 @@ class Pose3DLifter(nn.Module):
 
 class EgoRearNet(nn.Module):
     """Full cascade: stereo backbones and initial heatmaps -> MVFex
-    refinement -> 3D lifting. ``forward(img, rig)`` returns
-    ``(preds_3d, list_heatmap)``."""
+    refinement -> 3D lifting. ``forward(img, rig, coord_trans_mat=None)``
+    returns ``(preds_3d, list_heatmap)``."""
 
     def __init__(self, cfg: EgoRearNetCfg):
         super().__init__()
-        if cfg.camera_model != "ego4view_syn":
-            raise NotImplementedError(f"camera model {cfg.camera_model!r}: "
-                                      f"only ego4view_syn is ported")
         if not cfg.heatmap_mvf.use_pred_heatmap_init:
             # The stage-2 network takes this branch; the cascade's lifting
             # on the refined features is not held to the JAX package yet
@@ -160,12 +161,15 @@ class EgoRearNet(nn.Module):
             cfg.num_views, cfg.image_size, cfg.heatmap_mvf.use_pred_heatmap_init,
             cfg.pose3d)
 
-    def forward(self, img, rig: CameraRig):
-        """img (B, V, 3, H, W) -> (preds_3d [(B, J, 3)], heatmaps
+    def forward(self, img, rig: CameraRig,
+                coord_trans_mat: Optional[torch.Tensor] = None):
+        """img (B, V, 3, H, W), and on the real-world rig its (B, V, 4, 4)
+        ``coord_trans_mat`` -> (preds_3d [(B, J, 3)], heatmaps
         [(B, V, J_hm, h, w)])."""
         if rig.num_views != self.cfg.num_views:
             raise ValueError(f"rig has {rig.num_views} views, model "
                              f"{self.cfg.num_views}")
         list_heatmap, list_feat = self.heatmap_estimator(img)
-        preds_3d = self.pose3d_estimator(list_feat[0], list_feat[-1], rig)
+        preds_3d = self.pose3d_estimator(list_feat[0], list_feat[-1], rig,
+                                         coord_trans_mat)
         return preds_3d, list_heatmap

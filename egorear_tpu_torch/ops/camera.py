@@ -1,6 +1,13 @@
 """Calibrated Scaramuzza fisheye camera rig, vectorized over views (the JAX
-package's ``ops/camera.py``: ``CameraRig.from_calib_file``, ``.project`` and
-``fisheye_world2camera``; the synthetic Ego4View rig only).
+package's ``ops/camera.py``: ``CameraRig.from_calib_file``, ``.project``,
+``fisheye_world2camera`` and ``apply_se3``), for every rig of the reference's
+``camera_model``: ``ego4view_{syn,rw}`` with all four cameras, or one stereo
+pair (``_stereo_front``, ``_stereo_back``).
+
+The synthetic rig places each camera by a fixed centimetre offset (and an
+x/y flip for the back pair). The real-world rig (``ego4view_rw*``) takes a
+per-sample device-to-camera 4x4 transform (``coord_trans_mat``, metres)
+instead, and hands the anchors back unchanged.
 
 Reference quirk reproduced on purpose (``chained=True``, the default): the
 reference applies each camera's offset/flip IN PLACE on the shared anchor
@@ -13,7 +20,8 @@ tensor, so the four projections chain:
 
 and the anchors handed back to the 3D offset regressor are the mutated end
 state (a + (12, 0, 0) for the 4-view rig). ``chained=False`` gives the
-geometrically intended independent transforms.
+geometrically intended independent transforms. The real-world rig never
+chains.
 """
 
 from __future__ import annotations
@@ -42,6 +50,13 @@ _SYN_LAYOUT = {
     "camera_front_right": (False, (-6.0, 0.0, 0.0)),
     "camera_back_left": (True, (-6.0, 37.0, 0.0)),
     "camera_back_right": (True, (6.0, 37.0, 0.0)),
+}
+
+# The cameras of each camera_model suffix, in view order.
+_MODEL_CAMERAS = {
+    "": CAMERA_ORDER,
+    "_stereo_front": CAMERA_ORDER[:2],
+    "_stereo_back": CAMERA_ORDER[2:],
 }
 
 
@@ -81,28 +96,30 @@ class CameraRig:
     offset: torch.Tensor  # (V, 3) cumulative offset, cm
     final_sign: torch.Tensor  # (3,) end-state sign after the last camera
     final_offset: torch.Tensor  # (3,) end-state offset after the last camera
+    is_rw: bool = False
     num_views: int = 4
 
     @staticmethod
     def from_calib_file(camera_model: str, calib_path: Optional[str] = None,
                         chained: bool = True,
                         device=None) -> "CameraRig":
-        """Build the 4-view rig of the reference ``camera_model``
-        ``ego4view_syn`` from a rig JSON (default: the repository's
+        """Build the rig of the reference ``camera_model``
+        (``ego4view_{syn,rw}`` plus ``""``, ``_stereo_front`` or
+        ``_stereo_back``) from a rig JSON (default: the repository's
         ``calib/ego4view_rig.json``) or from the reference's directory of
-        per-camera JSONs (:func:`read_calib_dir`). The stereo-pair and
-        real-world (``ego4view_rw``) rigs are not ported."""
-        if camera_model != "ego4view_syn":
-            raise NotImplementedError(
-                f"camera model {camera_model!r}: only the 4-view synthetic "
-                f"ego4view_syn rig is ported")
+        per-camera JSONs (:func:`read_calib_dir`)."""
         calib_path = calib_path or default_calib_path()
         if os.path.isdir(calib_path):
             rig_data = read_calib_dir(calib_path)
         else:
             with open(calib_path) as f:
                 rig_data = json.load(f)["cameras"]
-        cameras = CAMERA_ORDER
+        suffix = ""
+        for s in ("_stereo_front", "_stereo_back"):
+            if camera_model.endswith(s):
+                suffix = s
+        cameras = _MODEL_CAMERAS[suffix]
+        is_rw = camera_model.startswith("ego4view_rw")
 
         polys, centers, sizes = [], [], []
         max_deg = max(len(rig_data[c]["poly_world2cam"]) for c in cameras)
@@ -138,26 +155,38 @@ class CameraRig:
         return CameraRig(
             poly_w2c=f32(polys), center=f32(centers), image_size_hw=f32(sizes),
             sign=f32(signs), offset=f32(offsets), final_sign=f32(final_sign),
-            final_offset=f32(final_offset), num_views=len(cameras),
+            final_offset=f32(final_offset), is_rw=is_rw, num_views=len(cameras),
         )
 
-    def camera_relative_points(self, pts3d: torch.Tensor) -> torch.Tensor:
-        """(B, J, 3) device-frame cm points -> (B, V, J, 3) camera-frame cm."""
+    def camera_relative_points(self, pts3d: torch.Tensor,
+                               coord_trans_mat: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+        """(B, J, 3) device-frame cm points -> (B, V, J, 3) camera-frame cm;
+        the real-world rig applies ``coord_trans_mat`` (B, V, 4, 4), metres."""
+        if self.is_rw:
+            if coord_trans_mat is None:
+                raise ValueError("real-world rig needs per-sample coord_trans_mat")
+            return apply_se3(coord_trans_mat, pts3d[:, None] * 0.01) * 100.0
         return self.sign[None, :, None, :] * pts3d[:, None] + self.offset[None, :, None, :]
 
-    def project(self, pts3d: torch.Tensor
+    def project(self, pts3d: torch.Tensor,
+                coord_trans_mat: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Project device-frame 3D points (B, J, 3), cm, into every view.
+        """Project device-frame 3D points (B, J, 3), cm, into every view
+        (the real-world rig through ``coord_trans_mat`` (B, V, 4, 4)).
 
         Returns pts2d (B, V, J, 2) in [0, 1], in_fov (B, V, J) bool, and
         anchors_out (B, J, 3): the anchor state after projection, which in
-        chained mode is the mutated end state the reference regresses
-        offsets against.
+        chained synthetic mode is the mutated end state the reference
+        regresses offsets against, and ``pts3d`` itself on the real-world
+        rig.
         """
         pts3d = pts3d.detach()
-        cam_pts = self.camera_relative_points(pts3d)
+        cam_pts = self.camera_relative_points(pts3d, coord_trans_mat)
         pts2d, in_fov = fisheye_world2camera(
             cam_pts, self.poly_w2c, self.center, self.image_size_hw)
+        if self.is_rw:
+            return pts2d, in_fov, pts3d
         anchors_out = self.final_sign * pts3d + self.final_offset
         return pts2d, in_fov, anchors_out
 
@@ -190,3 +219,17 @@ def fisheye_world2camera(cam_pts: torch.Tensor, poly_w2c: torch.Tensor,
     pts2d = torch.stack([u, v], dim=-1)
     in_fov = (u > 0) & (v > 0) & (u < 1) & (v < 1)
     return pts2d.clamp(0.0, 1.0), in_fov
+
+
+def apply_se3(mats: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Homogeneous 4x4 transforms ``mats`` (..., 4, 4) applied to 3D points
+    ``pts`` (..., J, 3), batch axes broadcast -> (..., J, 3).
+
+    Products and sums in the points' dtype, no matmul: fp32 whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says, as the JAX package's
+    einsum at ``Precision.HIGHEST``.
+    """
+    rot = mats[..., None, :3, :3]  # (..., 1, 3, 3): broadcast over J
+    p = pts[..., None, :]  # (..., J, 1, 3)
+    out = rot[..., 0] * p[..., 0] + rot[..., 1] * p[..., 1] + rot[..., 2] * p[..., 2]
+    return out + mats[..., None, :3, 3]

@@ -13,8 +13,10 @@ without the flag it raises. ``fit`` grafts the stage checkpoints the config
 names (``heatmap_estimator_pretrained_stereo_{front,back}``,
 ``heatmap_estimator_mvf_pretrained``, ``network_pretrained``) and resumes
 from ``--ckpt_path``'s directory when given; the other subcommands load the
-model state of the port's ``.pt`` checkpoint at ``--ckpt_path``. EgoRear
-``.ckpt`` files need the key import of ROADMAP Queue A 2 and raise.
+model state of the checkpoint at ``--ckpt_path``. Every checkpoint argument
+takes the port's ``epoch=N.pt`` or an EgoRear Lightning ``.ckpt`` (imported
+through ``train/torch_convert.py``). All 12 yamls run, the stereo-pair
+(V = 2) and real-world (``ego4view_rw*``) ones included.
 Precision ``32`` runs fp32 with TF32 off for matmuls and cuDNN convs.
 Prints the metrics (``test``/``validate``) or ``{"predictions": path}``
 (``predict``) as JSON on stdout.
@@ -115,13 +117,17 @@ def apply_pretrained(task, cfg, args) -> None:
 
 
 def load_eval_ckpt(task, cfg, ckpt_path: str) -> None:
-    """The model state of the port's checkpoint at ``ckpt_path`` into the
-    task's model; an EgoRear ``.ckpt`` raises ``NotImplementedError``."""
+    """The model state of the checkpoint at ``ckpt_path`` into the task's
+    model: the port's ``.pt``, or an EgoRear ``.ckpt`` of the config's task
+    (imported strictly; a checkpoint without BN statistics keeps the
+    model's)."""
     if ckpt_path.endswith(".ckpt"):
-        # Raises until the EgoRear key import is ported.
-        ckpt_lib.load_pretrained(ckpt_path, task.model.state_dict(), cfg.task_name)
-    state = ckpt_lib.restore(ckpt_path, map_location=next(task.model.parameters()).device)
-    task.model.load_state_dict(state["model"], strict=True)
+        sd = ckpt_lib.load_pretrained(ckpt_path, task.model.state_dict(),
+                                      cfg.task_name)
+    else:
+        sd = ckpt_lib.restore(ckpt_path, map_location=next(
+            task.model.parameters()).device)["model"]
+    task.model.load_state_dict(sd, strict=True)
     logger.info(f"loaded eval checkpoint {ckpt_path}")
 
 

@@ -10,8 +10,10 @@ checkpoint grafted into a submodule: a graft copies parameters and BN running
 stats into the live model in place, so the optimizer keeps holding the
 model's own parameters and its state is kept, as in the JAX package.
 
-Reference EgoRear ``.ckpt`` files (the Lightning checkpoints) need the key
-import of ``torch_convert.py``, which is not ported yet.
+A graft or evaluation may also start from a reference EgoRear ``.ckpt`` (a
+Lightning checkpoint), imported through the key grammar of
+:mod:`egorear_tpu_torch.train.torch_convert` as strictly as the JAX package
+imports it.
 """
 
 from __future__ import annotations
@@ -123,13 +125,17 @@ def prune_to_structure(target: Mapping[str, torch.Tensor],
 
 def load_pretrained(path: str, target: Mapping[str, torch.Tensor],
                     task_name: str) -> StateDict:
-    """The model state of checkpoint ``path``, pruned to ``target``'s keys
-    and checked against its shapes. ``task_name`` names the checkpoint's own
-    stage, which the import of EgoRear ``.ckpt`` files will need."""
+    """The model state of checkpoint ``path`` with ``target``'s keys and
+    shapes. The port's ``.pt`` is pruned to ``target`` (a stage-1 head the
+    target lacks is dropped); an EgoRear ``.ckpt`` of stage ``task_name``
+    is imported strictly (:func:`~egorear_tpu_torch.train.torch_convert.
+    import_lightning_ckpt`: an entry the target lacks, as a stage-1
+    checkpoint's ``conv_heatmap`` head in a stage-2 estimator, raises
+    ``ValueError``, as in the JAX package)."""
     if path.endswith(".ckpt"):
-        raise NotImplementedError(
-            f"{path}: importing EgoRear Lightning checkpoints ({task_name}) "
-            "needs the port of torch_convert.convert_lightning_ckpt")
+        from egorear_tpu_torch.train.torch_convert import import_lightning_ckpt
+
+        return import_lightning_ckpt(path, target, task_name)
     sd = prune_to_structure(target, restore(path, map_location="cpu")["model"], path)
     _check_same_structure(sd, target, path)
     return sd

@@ -1,7 +1,8 @@
 """Training tasks: model + loss + eval metrics for the three training stages
 (the JAX package's ``train/tasks.py``): :class:`HeatmapTask` (stage 1, one
-stereo pair), :class:`MVFexTask` (stage 2, the 4-view refinement) and
-:class:`Pose3DTask` (stage 3, the cascade on the synthetic rig), with the
+stereo pair), :class:`MVFexTask` (stage 2, the multi-view refinement) and
+:class:`Pose3DTask` (stage 3, the cascade on the synthetic or the real-world
+rig), with the
 loss helpers and the heatmap and pose metric suites. Metric names follow the
 JAX package (``heatmap_loss``, ``heatmap_loss_{i}``, ``mpjpe_loss_{i}``,
 ``loss_total``; ``{prefix}_mpjpe``, ``{prefix}_mse_heatmap`` ...).
@@ -145,21 +146,28 @@ class _Task:
 
     model: nn.Module
 
-    def _args(self, img):
+    def _args(self, img, coord_trans_mat):
         return (img,)
 
     def forward(self, img: torch.Tensor,
-                params: Optional[Dict[str, torch.Tensor]] = None):
-        """The model on ``img``, with its own parameters or ``params``."""
+                params: Optional[Dict[str, torch.Tensor]] = None,
+                coord_trans_mat: Optional[torch.Tensor] = None):
+        """The model on ``img``, with its own parameters or ``params``
+        (stage 3 on the real-world rig also takes the batch's
+        ``coord_trans_mat``)."""
+        args = self._args(img, coord_trans_mat)
         if params is None:
-            return self.model(*self._args(img))
-        return functional_call(self.model, params, self._args(img))
+            return self.model(*args)
+        return functional_call(self.model, params, args)
+
+    def _batch_forward(self, batch: dict, params=None):
+        return self.forward(batch["img"], params)
 
     @torch.no_grad()
     def _eval_forward(self, batch: dict):
         batch = prepare_batch(batch)
         self.model.eval()
-        return batch, self.forward(batch["img"])
+        return batch, self._batch_forward(batch)
 
 
 class HeatmapTask(_Task):
@@ -185,7 +193,7 @@ class HeatmapTask(_Task):
     def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None
              ) -> Tuple[torch.Tensor, Metrics]:
         batch = prepare_batch(batch)
-        pred = self.forward(batch["img"], params)
+        pred = self._batch_forward(batch, params)
         loss = _per_view_mse_sum(pred, batch["gt_heatmap"]) * self.w_heatmap
         return loss, {"heatmap_loss": loss}
 
@@ -225,7 +233,7 @@ class MVFexTask(_Task):
     def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None
              ) -> Tuple[torch.Tensor, Metrics]:
         batch = prepare_batch(batch)
-        hms, _ = self.forward(batch["img"], params)
+        hms, _ = self._batch_forward(batch, params)
         metrics = {}
         total = 0.0
         for i, hm in enumerate(hms):
@@ -237,11 +245,14 @@ class MVFexTask(_Task):
 
     def eval_metrics(self, batch: dict, test_mode: bool = False) -> Metrics:
         """Per-sample (B,) heatmap metrics of the initial (``proposal``) and
-        last refined (``final``) stages, per stereo pair; ``test_mode`` adds
-        the intermediate refiner layers (``mid_{i}``)."""
+        last refined (``final``) stages, per stereo pair (the back pair only
+        with V >= 3 views); ``test_mode`` adds the intermediate refiner
+        layers (``mid_{i}``)."""
         batch, (hms, _) = self._eval_forward(batch)
         gt = batch["gt_heatmap"]
-        pairs = (("stereo_front", slice(0, 2)), ("stereo_back", slice(2, None)))
+        pairs = [("stereo_front", slice(0, 2))]
+        if gt.shape[1] >= 3:
+            pairs.append(("stereo_back", slice(2, None)))
         stages = [("proposal", hms[0]), ("final", hms[-1])]
         if test_mode:
             stages += [(f"mid_{i}", hm) for i, hm in enumerate(hms[1:-1])]
@@ -269,7 +280,8 @@ class Pose3DTask(_Task):
     layers) plus ``w_heatmap`` x the per-view MSE sum of every heatmap stage
     (initial and refined). The rig is the config's ``camera_model`` from
     :func:`resolve_calib_path`'s source, chained as the reference unless
-    ``chained_cameras`` is False.
+    ``chained_cameras`` is False. On ``ego4view_rw*`` data every forward
+    (loss, evaluation, prediction) takes the batch's ``coord_trans_mat``.
     """
 
     name = "pose_3d_mvf_ex"
@@ -281,9 +293,6 @@ class Pose3DTask(_Task):
                  camera_calib_path: Optional[str] = None,
                  chained_cameras: bool = True,
                  device=None, seed: int = 0, **_):
-        if dataset_type.startswith("ego4view_rw"):
-            raise NotImplementedError("the real-world rig is not ported "
-                                      "(ROADMAP Queue A 7)")
         device = resolve_device(device, "Pose3DTask")
         self.cfg = EgoRearNetCfg.from_dict(copy.deepcopy(model_cfg))
         self.model = _build(EgoRearNet(self.cfg), seed,
@@ -295,19 +304,24 @@ class Pose3DTask(_Task):
         self.w_mpjpe = w_mpjpe
         self.w_heatmap = w_heatmap
         self.dataset_type = dataset_type
+        self.is_rw = dataset_type.startswith("ego4view_rw")
         # Only the reference's UnrealEgo pelvis-relative eval reads it; the
         # network ignores the origin either way.
         self.pose_relative_type = pose_relative_type
 
-    def _args(self, img):
-        return (img, self.rig)
+    def _args(self, img, coord_trans_mat):
+        return (img, self.rig, coord_trans_mat)
+
+    def _batch_forward(self, batch: dict, params=None):
+        ctm = batch.get("coord_trans_mat") if self.is_rw else None
+        return self.forward(batch["img"], params, ctm)
 
     def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None
              ) -> Tuple[torch.Tensor, Metrics]:
         """``(total, metrics)`` of one batch; the model's train/eval mode is
         the caller's (the trainer's step sets train mode)."""
         batch = prepare_batch(batch)
-        preds3d, hms = self.forward(batch["img"], params)
+        preds3d, hms = self._batch_forward(batch, params)
         metrics = {}
         total = 0.0
         for i, p in enumerate(preds3d):

@@ -90,15 +90,16 @@ class TrainerConfig:
         if self.devices is not None and self.devices > 1:
             raise NotImplementedError(
                 f"devices={self.devices}: data parallelism over several GPUs "
-                f"(DDP) is not ported (ROADMAP Queue A 8)")
+                f"(DDP) is not ported (ROADMAP Queue A, DDP over NCCL)")
         if self.model_parallel > 1:
             raise NotImplementedError(
                 f"model_parallel={self.model_parallel}: tensor parallelism is "
-                f"not ported (ROADMAP Queue A 8)")
+                f"not ported (ROADMAP Queue A, DDP over NCCL: the model "
+                f"axis is not queued)")
         if self.remat:
             raise NotImplementedError(
                 "remat: activation rematerialisation is not ported (ROADMAP "
-                "Queue A 4)")
+                "Queue A, tools and leftovers)")
 
 
 class CSVLogger:

@@ -30,6 +30,7 @@ from egorear_tpu.train.tasks import Pose3DTask as JaxPose3DTask
 from egorear_tpu.train.torch_convert import (
     convert_torchvision_resnet18 as jax_convert_torchvision,
 )
+import chip_smoke
 from egorear_tpu_torch import entry
 from egorear_tpu_torch.convert import from_flax, load_flax
 from egorear_tpu_torch.models.backbone import ResNet18
@@ -234,7 +235,7 @@ def test_restore_latest_picks_the_highest_epoch(tmp_path):
     assert torch.equal(state["model"]["w"], torch.full((2,), 10))
 
 
-def test_prune_to_structure_drops_the_stage1_head():
+def test_prune_to_structure_drops_the_stage1_head(tmp_path):
     stage1 = HeatmapTask(_stage_cfg("heatmap", False), device="cpu").model.state_dict()
     stage2 = MVFexTask(_stage_cfg("heatmap_mvf_ex", False), device="cpu").model
     target = checkpoint.sub_state(stage2.state_dict(), "heatmap_estimator_stereo_front")
@@ -248,8 +249,18 @@ def test_prune_to_structure_drops_the_stage1_head():
     with pytest.raises(ValueError, match="shape mismatch"):
         checkpoint.graft(stage2.state_dict(), "heatmap_estimator_stereo_front",
                          dict(pruned, **{"encoder.fpn.fpn_0.bias": torch.zeros(3)}))
-    with pytest.raises(NotImplementedError, match="convert_lightning_ckpt"):
-        checkpoint.load_pretrained("stage1.ckpt", target, "heatmap")
+    # An EgoRear .ckpt is imported strictly: its stage-1 head, which the
+    # stage-2 estimator lacks, is refused, as the JAX package refuses it.
+    ckpt = chip_smoke.write_egorear_ckpt(str(tmp_path / "stage1.ckpt"), stage1,
+                                         "heatmap")
+    jtask = JaxMVFexTask(_stage_cfg("heatmap_mvf_ex", False))
+    shapes = jax.eval_shape(lambda: jtask.model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 4, 3, SIZE, SIZE)), train=False))
+    front = {c: shapes[c]["heatmap_estimator_stereo_front"] for c in shapes}
+    with pytest.raises(ValueError, match="extra /params/conv_heatmap"):
+        jax_ckpt.load_pretrained(ckpt, front, "heatmap")
+    with pytest.raises(ValueError, match="extra conv_heatmap.weight"):
+        checkpoint.load_pretrained(ckpt, target, "heatmap")
 
 
 # -- the stage grafts -------------------------------------------------------------

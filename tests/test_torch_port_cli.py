@@ -4,8 +4,8 @@ JAX package's ``run.py`` on the CPU:
   * ``config.loader.load_config`` on all 12 shipped yamls: the task, the
     model's ``init_args`` and the trainer settings JAX reads; overrides and
     ``cli_keys``; the ``encoder_lr_scale`` precedence;
-  * ``run.build_task`` over the 12 yamls: built, or ``NotImplementedError``
-    for exactly the five that need the V = 2 or the real-world rig;
+  * ``run.build_task`` over the 12 yamls: every one builds (``NOT_PORTED``
+    is empty since the V = 2 and real-world rigs were ported);
   * stage-1 ``fit`` (2 epochs, b4, ``log_every_n_steps 1``) from the JAX
     trainer's initial weights (grafted through ``network_pretrained``):
     every ``metrics.csv`` row within 1e-4 relative of JAX ``Trainer.fit``'s,
@@ -14,7 +14,8 @@ JAX package's ``run.py`` on the CPU:
     relative of JAX ``Trainer.evaluate``, and ``predict``'s
     ``predictions.npz`` and OBJ meshes against JAX's, on the same weights;
   * ``auto_resume``, ``debug_nans``, the ``CSVLogger`` file, the refused
-    ``.ckpt`` import and the refused run without CUDA.
+    import of an EgoRear ``.ckpt`` of another task and the refused run
+    without CUDA.
 
 The port-only chain (stage 1 -> 2 -> 3 ``fit``, ``test``, ``predict``) is
 ``tests/test_torch_port_cli_chain.py``.
@@ -45,6 +46,9 @@ from egorear_tpu.config.loader import load_config as jax_load_config
 from egorear_tpu.data.datasets import get_dataset as jax_get_dataset
 from egorear_tpu.train.tasks import TASKS as JAX_TASKS
 from egorear_tpu.train.trainer import CSVLogger as JaxCSVLogger
+from egorear_tpu.train.torch_convert import (
+    convert_lightning_ckpt as jax_convert_lightning_ckpt,
+)
 from egorear_tpu.train.trainer import Trainer as JaxTrainer
 from egorear_tpu.utils.skeleton import export_pose_obj as jax_export_pose_obj
 import chip_smoke
@@ -60,14 +64,9 @@ from test_torch_port_models import random_variables
 REPO = os.path.join(os.path.dirname(__file__), os.pardir)
 CONFIGS = os.path.join(REPO, "configs")
 YAMLS = sorted(n[:-5] for n in os.listdir(CONFIGS) if n.endswith(".yaml"))
-# The V = 2 stereo rigs and the real-world rig are not ported.
-NOT_PORTED = {
-    "ego4view_syn_heatmap_mvfex-n1_jqa_stereo_front",
-    "ego4view_rw_heatmap_mvfex-n1_jqa_stereo_front",
-    "ego4view_syn_pose3d_stereo_front",
-    "ego4view_rw_pose3d",
-    "ego4view_rw_pose3d_stereo_front",
-}
+# Yamls that the port refuses to build: none since the V = 2 stereo rigs and
+# the real-world rig were ported.
+NOT_PORTED: set = set()
 METRIC_RTOL = 1e-4
 POSE_ATOL = 1e-4  # cm
 STAGE1 = "ego4view_syn_heatmap_stereo_front"
@@ -415,13 +414,23 @@ def test_csv_logger_file_matches_jax(tmp_path):
 
 def test_ckpt_import_and_cuda_refused(tmp_path, monkeypatch):
     cfg = dict(entry.STAGE1_CFG)
-    task = HeatmapTask({**cfg, "encoder_cfg": {
-        **cfg["encoder_cfg"], "resnet_cfg": {
-            **cfg["encoder_cfg"]["resnet_cfg"], "use_imagenet_pretrain": False}}},
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="torch_convert"):
-        run.load_eval_ckpt(task, types.SimpleNamespace(task_name="heatmap"),
-                           str(tmp_path / "epoch=11.ckpt"))
+    cfg = {**cfg, "encoder_cfg": {**cfg["encoder_cfg"], "resnet_cfg": {
+        **cfg["encoder_cfg"]["resnet_cfg"], "use_imagenet_pretrain": False}}}
+    task = HeatmapTask(cfg, device="cpu")
+    # An EgoRear .ckpt whose head has 14 joints, not 15: refused by both
+    # packages' strict import, before any weight is loaded.
+    before = {k: v.clone() for k, v in task.model.state_dict().items()}
+    sd = dict(before, **{"conv_heatmap.weight": before["conv_heatmap.weight"][:14],
+                         "conv_heatmap.bias": before["conv_heatmap.bias"][:14]})
+    ckpt = chip_smoke.write_egorear_ckpt(str(tmp_path / "epoch=11.ckpt"), sd, "heatmap")
+    jtask = JAX_TASKS["heatmap"](cfg)
+    shapes = jax.eval_shape(lambda: jtask.model.init(
+        jax.random.PRNGKey(0), np.zeros((1, 2, 3, 64, 64), np.float32), train=False))
+    with pytest.raises(ValueError, match="shape mismatch /params/conv_heatmap/bias"):
+        jax_convert_lightning_ckpt(ckpt, shapes, "heatmap")
+    with pytest.raises(ValueError, match="shape mismatch conv_heatmap.bias"):
+        run.load_eval_ckpt(task, types.SimpleNamespace(task_name="heatmap"), ckpt)
+    assert all(torch.equal(v, before[k]) for k, v in task.model.state_dict().items())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainerConfig(remat=True)
     if not torch.cuda.is_available():  # the module's own entry, as users run it

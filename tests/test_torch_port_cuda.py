@@ -1100,3 +1100,80 @@ def test_stage2_fit_through_the_cli_launches_the_lazy_kernels_on_card(tmp_path):
     torch.cuda.synchronize()
     assert trainer.step == 1 and trainer.device.type == "cuda"
     assert [fn.launches for fn in counters] == [4 + 4, 4, 0, 0]
+
+
+# -- the stereo-pair and real-world rigs on the card -------------------------------
+
+
+@pytest.mark.cuda
+def test_rw_projection_ignores_tf32_on_card():
+    """``apply_se3`` sums fp32 products, no matmul: on the card the
+    real-world projection is bitwise the same with TF32 matmuls on and off,
+    and within fp32 rounding of the CPU's."""
+    _needs_card()
+    from egorear_tpu_torch.ops.camera import CameraRig, apply_se3
+
+    g = torch.Generator().manual_seed(3)
+    mats = torch.eye(4).repeat(8, 4, 1, 1)
+    mats[..., :3, :3] += 0.2 * torch.randn(8, 4, 3, 3, generator=g)
+    mats[..., :3, 3] = 0.05 * torch.randn(8, 4, 3, generator=g)
+    pts = torch.randn(8, 16, 3, generator=g) * 30 + torch.tensor([0.0, 18.0, 60.0])
+    rig = CameraRig.from_calib_file("ego4view_rw", device="cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        outs = []
+        for on in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = on
+            outs.append((apply_se3(mats.cuda(), pts.cuda()[:, None]),
+                         rig.project(pts.cuda(), mats.cuda())[0]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    cpu = apply_se3(mats, pts[:, None])
+    assert float((outs[0][0].cpu() - cpu).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage,views,camera_model,want", [
+    ("heatmap_mvf_ex", 2, "ego4view_syn_stereo_front", 2),
+    ("pose_3d_mvf_ex", 2, "ego4view_syn_stereo_front", 5),
+    ("pose_3d_mvf_ex", 4, "ego4view_rw", 7),
+])
+def test_v2_and_rw_steps_launch_the_lazy_kernels_on_card(stage, views, camera_model,
+                                                        want):
+    """One train step (64 px, b2, fp32) of the V = 2 stage 2 and stage 3 and
+    of the real-world stage 3 (per-sample transforms) launches the lazy
+    forward and backward once per refiner and lifting layer: V (+ 3)."""
+    _needs_card()
+    import copy
+
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.train.tasks import TASKS
+    from egorear_tpu_torch.train.trainer import Trainer
+
+    if stage == "heatmap_mvf_ex":
+        cfg = copy.deepcopy(dict(entry.STAGE2_CFG, image_size=[64, 64],
+                                 num_views=views))
+        cfg["encoder_cfg"]["resnet_cfg"]["use_imagenet_pretrain"] = False
+    else:
+        cfg = entry.flagship_cfg_dict((64, 64))
+        cfg.update(num_views=views, camera_model=camera_model)
+    task = TASKS[stage](cfg, device="cuda", dataset_type=(
+        "ego4view_rw_pose3d" if "rw" in camera_model else ""))
+    trainer = Trainer(task, 1e-5, 5e-3, (8,), 2)
+    trainer.init_state(steps_per_epoch=10)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    batch = {"img": torch.randn(2, views, 3, 64, 64, generator=g, device="cuda"),
+             "gt_heatmap": torch.rand(2, views, 15, 16, 16, generator=g, device="cuda")}
+    if stage == "pose_3d_mvf_ex":
+        batch["gt_pose"] = torch.randn(2, 16, 3, generator=g, device="cuda") * 30
+        batch["coord_trans_mat"] = torch.eye(4, device="cuda").repeat(2, views, 1, 1)
+    counters = (lazy_deform_sample, lazy_deform_sample_backward,
+                deformable_sampling, deformable_sampling_backward)
+    for fn in counters:
+        fn.launches = 0
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [want, want, 0, 0]
+    assert bool(torch.isfinite(metrics["loss_total"]))

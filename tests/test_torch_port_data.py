@@ -288,8 +288,6 @@ def test_synthetic_tree_matches_jax(tmp_path, draw_pose):
             assert open(a).read() == open(b).read(), rel
     assert worst_2d <= PTS2D_TOL and worst_hm <= HM_NPY_TOL, (worst_2d, worst_hm)
     assert n["jpg"] == 4 * n["json"] and n["json"] == 2 * 2 * (3 + 2 + 2)
-    with pytest.raises(NotImplementedError):
-        make_synthetic_dataset(str(tmp_path / "rw"), "rw")
 
 
 def test_draw_pose_image_matches_jax():

@@ -287,8 +287,6 @@ def _cfg_with(**changes):
     {"pose3d__use_mlp_avgpool": True},
     {"pose3d__use_mlp_heatmap": True},
     {"pose3d__norm_mlp_pred": True},
-    {"camera_model": "ego4view_rw"},
-    {"heatmap_mvf__num_views": 2},
 ], ids=lambda c: next(iter(c)))
 def test_unported_branches_raise(change):
     with pytest.raises(NotImplementedError):

@@ -170,8 +170,16 @@ def test_camera_project_matches_jax(chained):
 
 
 def test_camera_rig_refuses_real_world_rig():
-    with pytest.raises(NotImplementedError):
-        CameraRig.from_calib_file("ego4view_rw")
+    """The real-world rig refuses to project without its per-sample
+    device-to-camera transforms, as the JAX package's does (with them every
+    rig is held to JAX in ``tests/test_torch_port_rigs.py``)."""
+    pts = np.full((1, 16, 3), 30.0, np.float32)
+    rig = CameraRig.from_calib_file("ego4view_rw")
+    assert rig.is_rw and rig.num_views == 4
+    with pytest.raises(ValueError, match="coord_trans_mat"):
+        JaxRig.from_calib_file("ego4view_rw").project(pts)
+    with pytest.raises(ValueError, match="coord_trans_mat"):
+        rig.project(torch.from_numpy(pts))
 
 
 @pytest.mark.parametrize("shape,out_hw", [

@@ -381,8 +381,16 @@ def test_unported_training_paths_raise(fault, monkeypatch, tmp_path):
             Pose3DTask(cfg, device="cpu")
         return
     if fault == "real_world_rig":
-        with pytest.raises(NotImplementedError):
-            Pose3DTask(cfg, dataset_type="ego4view_rw_pose3d", device="cpu")
+        # A real-world batch without its device-to-camera transforms: the
+        # rig refuses it, as the JAX package's does.
+        cfg["camera_model"] = "ego4view_rw"
+        task = Pose3DTask(cfg, dataset_type="ego4view_rw_pose3d", device="cpu")
+        assert task.is_rw and task.rig.is_rw
+        batch = {"img": torch.zeros(B, 4, 3, SIZE, SIZE),
+                 "gt_pose": torch.zeros(B, 16, 3),
+                 "gt_heatmap": torch.zeros(B, 4, 15, SIZE // 4, SIZE // 4)}
+        with pytest.raises(ValueError, match="coord_trans_mat"):
+            task.loss(batch)
         return
     if fault == "dropout":
         cfg["pose3d_cfg"]["mlp_dropout"] = 0.1
