@@ -118,6 +118,24 @@ The stereo-pair (V = 2) and real-world yamls through the CLI, the same way:
      ``.pt`` and as ``.ckpt`` (identical metrics), and ``predict`` of the
      V = 2 yaml on the card vs ``--device cpu``.
 
+The uint8 on-device preprocessing (``device_preprocess``) through the CLI:
+
+  14. a: one stage-2 batch of phase 12's tree by the device path (uint8
+     872-px views; resize, normalisation and targets on the card) and by the
+     host path: ``img`` within one LSB after normalisation (the share one
+     LSB off printed), the targets within 1e-6 of the NPYs, and bitwise the
+     same with TF32 matmuls allowed; b: the device path's loader rate with
+     the port's collation (the workers copy into pinned rows) and, in
+     turns, with a stack-then-pin collation (the iterating thread stacks
+     and pins each batch, :func:`stacking_loader`), each batch's copy ms, the host path's rate,
+     the preprocessing's device time and transient memory, ``fit`` of stage
+     2 (b64, 4 + 4 launches a step) and stage 3 (b32, 7 + 7) with
+     ``device_preprocess`` at 872 px beside phase 12's rates and
+     loader-bound shares, peak memory, a kept step of stage 3 on a uint8
+     batch; c: a two-epoch stage-2 ``fit`` on the host path with
+     ``cache_in_memory``, each epoch's rate and loader-bound share and the
+     cache's resident bytes.
+
 Every phase that drives the main path sets the launch counts of all four
 kernels to 0 just before it and reads them just after.
 
@@ -129,6 +147,7 @@ fails. Its last two lines are the per-kernel JSON record and
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -1259,10 +1278,12 @@ def perturb_train_(model, batch, gen) -> None:
     """:func:`perturb_` in train mode, so that the median initial heatmap
     peak of the training forward (BN on batch statistics) sits at the
     threshold; the BN running stats stay as they were."""
+    from egorear_tpu_torch.train.tasks import prepare_batch
+
     model.train()
     stats = {k: v.clone() for k, v in model.state_dict().items()
              if "running" in k or "num_batches" in k}
-    perturb_(model, batch["img"], gen)
+    perturb_(model, prepare_batch(batch)["img"], gen)
     model.load_state_dict(stats, strict=False)
 
 
@@ -1997,14 +2018,16 @@ def fixed_batch_rate(trainer, batch: dict) -> float:
 
 
 def cli_fit(card, name: str, root: str, workdir: str, n_items: int,
-            per: int, extra: list, synthetic: float | None, tag: str = "[12]"):
+            per: int, extra: list, synthetic: float | None, tag: str = "[12]",
+            rates: dict | None = None):
     """``fit`` of one yaml for one epoch over ``n_items`` train items: its
     metrics.csv, finite losses, ``epoch=0.pt``, at least 2 steps, the lazy
     launches (``per`` each way a step, ``per`` forwards for the one
     validation batch); prints the epoch's samples/s through the loader
     beside the same step's on one batch on the card (their ratio is the
-    loader-bound share) and ``synthetic`` (the phase-8/10 rate). Returns the
-    checkpoint, the launch counts, the trainer and that batch."""
+    loader-bound share) and ``synthetic`` (the phase-8/10 rate), and puts
+    both rates and the share in ``rates[name]``. Returns the checkpoint, the
+    launch counts, the trainer and that batch."""
     import csv
 
     from egorear_tpu_torch import run
@@ -2039,6 +2062,9 @@ def cli_fit(card, name: str, root: str, workdir: str, n_items: int,
                                    ).items() if torch.is_tensor(v)}
     fixed = fixed_batch_rate(trainer, batch)
     through = steps * B / seconds
+    share = 100 * max(0.0, 1 - through / fixed)
+    if rates is not None:
+        rates[name] = dict(through=through, fixed=fixed, share=share)
     # Phase 8's stage-1 samples hold both views of a pair; the dataset's
     # items hold one, so the share is taken against the same step here.
     against = (f", phase 8/10's synthetic b64 {synthetic:.1f} samples/s"
@@ -2047,7 +2073,7 @@ def cli_fit(card, name: str, root: str, workdir: str, n_items: int,
           f"loader ({through:.1f} samples/s, {1e3 * seconds / steps:.1f} ms/step, "
           f"first step included), one batch on the card {fixed:.1f} samples/s "
           f"({B * 1e3 / fixed:.1f} ms/step){against}; loader-bound share "
-          f"{100 * max(0.0, 1 - through / fixed):.1f} %; launches lazy_deform_sample "
+          f"{share:.1f} %; launches lazy_deform_sample "
           f"{launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
           f"{launched['lazy_deform_sample_bwd']} = ({steps} steps + 1 val batch) "
           f"x {per}, {steps} x {per}; {key} at the epoch's end {losses[-1]:.4f} "
@@ -2107,14 +2133,15 @@ def phase_cli(card, workdir: str, rates: dict) -> dict:
     grafts = []
     for pair in ("front", "back"):
         grafts += [f"--model.{GRAFT_KEYS[pair]}", stage1[pair]]
+    cli_rates = {}
     stage2, launched, _, _ = cli_fit(card, "ego4view_syn_heatmap_mvfex-n1_jqa", root,
                                workdir, CLI_TRAIN_FRAMES, launches_mvfex(), grafts,
-                               rates.get("stage2"))
+                               rates.get("stage2"), rates=cli_rates)
     add(launched)
     stage3, launched, _, _ = cli_fit(card, "ego4view_syn_pose3d", root, workdir,
                                CLI_TRAIN_FRAMES, launches_per_forward(),
                                ["--model.heatmap_estimator_mvf_pretrained", stage2],
-                               None)
+                               None, rates=cli_rates)
     add(launched)
 
     evals = ["--config", os.path.join(CONFIGS, "ego4view_syn_pose3d.yaml"),
@@ -2125,7 +2152,8 @@ def phase_cli(card, workdir: str, rates: dict) -> dict:
     add(cli_predict_vs_cpu(card, "[12]", evals, workdir, 4, CLI_EVAL_FRAMES))
     print(f"[12] CLI chain {time.perf_counter() - t0:.1f} s (tree {t_tree:.1f} s) "
           f"| {card}", flush=True)
-    return dict(launches=total, root=root, stage1=stage1, stage2=stage2)
+    return dict(launches=total, root=root, stage1=stage1, stage2=stage2,
+                grafts=grafts, rates=cli_rates, decode=decode)
 
 
 def cli_eval(card, tag: str, sub: str, evals: list, workdir: str, views: int,
@@ -2323,6 +2351,268 @@ def phase_cli_rigs(card, workdir: str, cli: dict) -> dict:
     return total
 
 
+# Phase 14: the uint8 on-device preprocessing through the CLI on phase 12's
+# syn tree (872-px JPEGs, the JSONs' 2D joints): the host only decodes; the
+# card resizes 872 -> 256, normalises and renders the targets
+# (egorear_tpu_torch/data/preprocess.py). 14c: cache_in_memory on the host
+# path over two epochs.
+DP_HM_TOL = 1e-6  # the card's targets vs the heatmap NPYs
+
+
+def stacking_loader():
+    """A yardstick loader with the stack-then-pin collation: the workers
+    return samples, and the iterating thread stacks each batch
+    (``np.stack``) and pins it (``pin_memory``) before the copy to the
+    card; the seconds of each batch's stack and pin go to its ``times``."""
+    import concurrent.futures as cf
+
+    import numpy as np
+
+    from egorear_tpu_torch.data.loader import PREFETCH, DataLoader
+
+    class StackThenPin(DataLoader):
+        times: list
+
+        def _host_batches(self):
+            self.times = []
+            with cf.ThreadPoolExecutor(self.num_workers) as pool:
+                pending = collections.deque()
+
+                def finish():
+                    samples = [f.result() for f in pending.popleft()]
+                    t = time.perf_counter()
+                    batch = {k: [s[k] for s in samples] for k in samples[0]}
+                    batch = {k: torch.from_numpy(np.stack(v)).pin_memory()
+                             if isinstance(v[0], np.ndarray) else v
+                             for k, v in batch.items()}
+                    self.times.append(time.perf_counter() - t)
+                    return batch
+
+                for idxs, _ in self._batch_indices():
+                    pending.append([pool.submit(self.dataset.__getitem__, int(i))
+                                    for i in idxs])
+                    if len(pending) > PREFETCH:
+                        yield finish()
+                while pending:
+                    yield finish()
+
+    return StackThenPin
+
+
+def loader_pass(ds, B: int, key: str, loader_cls=None) -> dict:
+    """One pass of ``ds`` through the loader (the yamls' 16 workers, pinned
+    to the card): images/s and, per batch, the milliseconds of the copies
+    into its pinned rows summed over the workers (the port's loader) or of
+    the stack and pin on the iterating thread (:func:`stacking_loader`),
+    and the first batch's tensors."""
+    from egorear_tpu_torch.data import loader as loader_mod
+
+    copy_s = collections.defaultdict(float)
+    put = loader_mod._Batch.put
+
+    def timed_put(batch, j, sample):
+        t = time.perf_counter()
+        put(batch, j, sample)
+        copy_s[id(batch)] += time.perf_counter() - t
+
+    loader = (loader_cls or loader_mod.DataLoader)(ds, B, num_workers=16,
+                                                   device=TRAIN_DEVICE)
+    first, n_img = None, 0
+    loader_mod._Batch.put = timed_put
+    try:
+        t = time.perf_counter()
+        for b in loader:
+            n_img += b[key].shape[0] * b[key].shape[1]
+            if first is None:
+                first = {k: v for k, v in b.items() if torch.is_tensor(v)}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    finally:
+        loader_mod._Batch.put = put
+    per_batch = getattr(loader, "times", None) or list(copy_s.values())
+    return dict(rate=n_img / seconds, n_img=n_img, batch=first,
+                ms=[1e3 * x for x in per_batch])
+
+
+def ms_list(values: list) -> str:
+    return " / ".join(f"{v:.1f}" for v in values)
+
+
+def phase_device_preprocess(card, workdir: str, cli: dict) -> dict:
+    """The uint8 on-device preprocessing on the card, through the CLI.
+
+    14a: one stage-2 batch of the same frames by the device path (uint8
+    views, ``prepare_batch`` on the card) and by the host path (PIL resize
+    and normalisation, the NPYs): ``img`` within one LSB after
+    normalisation, the targets within ``DP_HM_TOL`` of the NPYs, and the
+    same again, bitwise, with TF32 matmuls allowed for the call. 14b:
+    the device path's loader rate with the port's collation and with the
+    stack-then-pin one (:func:`stacking_loader`), in turns, and each
+    batch's copy times; the host path's rate; the preprocessing's device
+    time and memory; ``fit`` of stage 2 (b64) and stage 3 (b32) with
+    ``device_preprocess`` at 872 px, beside phase 12's rates; a kept step
+    of stage 3. 14c: a two-epoch stage-2 ``fit`` on the host path with
+    ``cache_in_memory``: each epoch's rate and the cache's resident bytes.
+    Returns each path's launch counts."""
+    from egorear_tpu_torch import run
+    from egorear_tpu_torch.config.loader import load_config
+    from egorear_tpu_torch.data.datasets import get_dataset
+    from egorear_tpu_torch.data.preprocess import IMAGENET_STD
+    from egorear_tpu_torch.train.tasks import prepare_batch
+
+    t0 = time.perf_counter()
+    root, dpdir = cli["root"], os.path.join(workdir, "dp")
+    stage2_yaml = os.path.join(CONFIGS, "ego4view_syn_heatmap_mvfex-n1_jqa.yaml")
+    B = load_config(stage2_yaml, CLI_OVERRIDES).init_args["batch_size"]
+    dev_ds = get_dataset("ego4view_syn_heatmap_mvf", root, "train",
+                         device_preprocess=True, image_size=CLI_IMAGE_SIZE)
+    host_ds = get_dataset("ego4view_syn_heatmap_mvf", root, "train")
+    stacking = stacking_loader()
+    # The device path through the stack-then-pin collation and the port's,
+    # in turns.
+    passes = {}
+    for label, ds, key, cls in (
+            ("device path, stack-then-pin collation", dev_ds, "img_u8", stacking),
+            ("device path", dev_ds, "img_u8", None),
+            ("device path, again", dev_ds, "img_u8", None),
+            ("device path, stack-then-pin collation, again", dev_ds, "img_u8",
+             stacking),
+            ("host path", host_ds, "img", None)):
+        passes[label] = loader_pass(ds, B, key, cls)
+    dev, host = passes["device path"]["batch"], passes["host path"]["batch"]
+
+    # 14a: the card's preprocessing against the host path, TF32 off and on.
+    std = torch.as_tensor(IMAGENET_STD, device=TRAIN_DEVICE)[:, None, None]
+    img_tol = (1.0 / 255.0) / float(IMAGENET_STD.min()) + 1e-4
+    legacy = torch.get_float32_matmul_precision()
+    imgs = {}
+    for setting in (legacy, "high"):
+        torch.set_float32_matmul_precision(setting)
+        try:
+            prepared = prepare_batch(dev)
+            torch.cuda.synchronize()
+        finally:
+            torch.set_float32_matmul_precision(legacy)
+        img, hm = prepared["img"], prepared["gt_heatmap"]
+        err = (img - host["img"]).abs()
+        lsb = torch.round(err * std * 255.0)
+        hm_err = float((hm - host["gt_heatmap"]).abs().max())
+        print(f"[14a] matmul precision {setting!r}: {tuple(dev['img_u8'].shape)} uint8 "
+              f"on the card -> img {tuple(img.shape)} vs the host path's PIL resize: "
+              f"max-abs {float(err.max()):.3e} (tol {img_tol:.4g}, one LSB), values one "
+              f"LSB off {float((lsb >= 1).float().mean()):.4e}, more than one "
+              f"{int((lsb > 1).sum())}; targets vs the NPYs max-abs {hm_err:.3e} (tol "
+              f"{DP_HM_TOL:g}), {tuple(hm.shape)} | {card}", flush=True)
+        if (img.shape != host["img"].shape or hm.shape != host["gt_heatmap"].shape
+                or float(err.max()) > img_tol or hm_err > DP_HM_TOL
+                or img.device.type != TRAIN_DEVICE):
+            raise AssertionError(f"[14a] the card's preprocessing disagrees with the "
+                                 f"host path under matmul precision {setting!r}")
+        imgs[setting] = img
+    if not torch.equal(imgs[legacy], imgs["high"]):
+        raise AssertionError("[14a] TF32 matmuls changed the card's resize")
+
+    # 14b: the two loader paths, the preprocessing alone, the CLI fits.
+    for label, p in passes.items():
+        what = ("stack and pin on the iterating thread" if "stack" in label else
+                "copies into the pinned rows, summed over the workers")
+        print(f"[14b] {label} through the loader: {p['rate']:.1f} images/s "
+              f"({p['n_img']} images, 16 workers, {os.cpu_count()} CPUs; phase 12's "
+              f"host path {cli['decode']:.1f}); per batch of {B}, {what}: "
+              f"{ms_list(p['ms'])} ms | {card}", flush=True)
+    ms = time_ms(lambda: prepare_batch(dev), n=10, warmup=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prepare_batch(dev)
+    torch.cuda.synchronize()
+    extra_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    N, V, H, W, C = dev["img_u8"].shape
+    flops = 2 * N * V * C * 256 * (H * W + W * 256)
+    print(f"[14b] device preprocessing of one batch ({N} x {V} views of {H} px): "
+          f"{ms:.3f} ms (CUDA events), {flops / ms / 1e9:.1f} TFLOP/s in the two fp32 "
+          f"products, {extra_gib:.2f} GiB transient | {card}", flush=True)
+
+    total = {p: dict.fromkeys(KERNELS, 0) for p in ("device_preprocess",
+                                                    "cache_in_memory")}
+
+    def add(path, launched):
+        for k, v in launched.items():
+            total[path][k] += v
+
+    rates = {}
+    for name, per, extra in (
+            ("ego4view_syn_heatmap_mvfex-n1_jqa", launches_mvfex(), cli["grafts"]),
+            ("ego4view_syn_pose3d", launches_per_forward(),
+             ["--model.heatmap_estimator_mvf_pretrained", cli["stage2"]])):
+        torch.cuda.reset_peak_memory_stats()
+        _, launched, trainer, batch = cli_fit(
+            card, name, root, dpdir, CLI_TRAIN_FRAMES, per,
+            extra + ["--model.dataset_kwargs.device_preprocess", "true",
+                     "--model.dataset_kwargs.image_size", str(CLI_IMAGE_SIZE)],
+            None, "[14b]", rates)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        add("device_preprocess", launched)
+        got, was = rates[name], cli["rates"][name]
+        print(f"[14b] {name} with device_preprocess at {CLI_IMAGE_SIZE} px: through "
+              f"the loader {got['through']:.1f} samples/s (phase 12 {was['through']:.1f}),"
+              f" one batch on the card {got['fixed']:.1f} ({was['fixed']:.1f}); "
+              f"loader-bound share {got['share']:.1f} % (phase 12 {was['share']:.1f} %); "
+              f"peak {peak:.2f} GiB | {card}", flush=True)
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(25)
+    kept_step(trainer.task, trainer, batch, gen, cli_launches(1, 1, per), "[14b]", card)
+    print(f"[14b] kept step of ego4view_syn_pose3d on a uint8 batch: {per} + {per} "
+          f"launches held against the plain versions | {card}", flush=True)
+
+    # 14c: cache_in_memory on the host path, two epochs.
+    made = []
+    get = run.get_dataset
+
+    def keep(*args, **kwargs):
+        made.append(get(*args, **kwargs))
+        return made[-1]
+
+    run.get_dataset = keep
+    try:
+        trainer, launched, _ = cli_run(
+            ["fit", "--config", stage2_yaml, "--model.data_root", root,
+             "--trainer.max_epochs", "2", "--trainer.save_dir",
+             os.path.join(dpdir, "cache_in_memory"), "--device", TRAIN_DEVICE,
+             "--model.dataset_kwargs.cache_in_memory", "true"]
+            + cli["grafts"] + CLI_OVERRIDES)
+    finally:
+        run.get_dataset = get
+    add("cache_in_memory", launched)
+    (_, s1, t1), (_, s2, t2) = trainer.epoch_times
+    n_val = 2 * -(-CLI_EVAL_FRAMES // B)
+    want = cli_launches(s1 + s2 + n_val, s1 + s2, launches_mvfex())
+    if launched != want or s1 != s2 or s1 < 2:
+        raise AssertionError(f"[14c] 2 epochs of {s1}, {s2} steps launched {launched}, "
+                             f"expected {want}")
+    fixed = fixed_batch_rate(trainer, host)
+    for e, (steps, seconds) in enumerate(((s1, t1), (s2, t2)), 1):
+        through = steps * B / seconds
+        print(f"[14c] cache_in_memory stage 2 B={B}, epoch {e}: {steps} steps in "
+              f"{seconds:.3f} s ({through:.1f} samples/s) vs one batch on the card "
+              f"{fixed:.1f}; loader-bound share {100 * max(0.0, 1 - through / fixed):.1f} %"
+              f" | {card}", flush=True)
+
+    def cache_bytes(ds):
+        return sum(v.nbytes for item in ds._cache.values() for v in item.values()
+                   if hasattr(v, "nbytes"))
+
+    train = made[0]  # run._datasets makes the train split first
+    print(f"[14c] the train cache holds {len(train._cache)} samples in "
+          f"{cache_bytes(train) / 2**20:.1f} MiB "
+          f"({cache_bytes(train) / max(1, len(train._cache)) / 2**20:.2f} MiB a "
+          f"sample; all {len(made)} datasets {sum(map(cache_bytes, made)) / 2**20:.1f} "
+          f"MiB); launches lazy_deform_sample {launched['lazy_deform_sample']}, "
+          f"lazy_deform_sample_bwd {launched['lazy_deform_sample_bwd']} | {card}",
+          flush=True)
+    print(f"[14] phase 14 {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -2389,6 +2679,7 @@ def main() -> int:
             timed("11", phase_stage3_graft, card, stage2)
             cli = timed("12", phase_cli, card, workdir, rates)
             rigs_launched = timed("13", phase_cli_rigs, card, workdir, cli)
+            dp_launched = timed("14", phase_device_preprocess, card, workdir, cli)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[7] main-path launches: serving forward lazy_deform_sample "
@@ -2404,13 +2695,22 @@ def main() -> int:
           f"lazy_deform_sample_bwd {cli['launches']['lazy_deform_sample_bwd']}; "
           f"V = 2 and real-world CLI lazy_deform_sample "
           f"{rigs_launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
-          f"{rigs_launched['lazy_deform_sample_bwd']} | {card}", flush=True)
+          f"{rigs_launched['lazy_deform_sample_bwd']}; device_preprocess CLI "
+          f"lazy_deform_sample {dp_launched['device_preprocess']['lazy_deform_sample']}, "
+          f"lazy_deform_sample_bwd "
+          f"{dp_launched['device_preprocess']['lazy_deform_sample_bwd']}; "
+          f"cache_in_memory CLI lazy_deform_sample "
+          f"{dp_launched['cache_in_memory']['lazy_deform_sample']}, "
+          f"lazy_deform_sample_bwd {dp_launched['cache_in_memory']['lazy_deform_sample_bwd']}"
+          f" | {card}", flush=True)
     # Each main path's counts, zeroed before and read after its own run;
     # ``launches`` is their sum.
     by_path = {"serving_lazy": serve[True], "serving_reference": serve[False],
                "training_lazy": train[True], "training_reference": train[False],
                "stage2_training": stage2_launched, "cli_chain": cli["launches"],
-               "cli_v2_and_real_world": rigs_launched}
+               "cli_v2_and_real_world": rigs_launched,
+               "cli_device_preprocess": dp_launched["device_preprocess"],
+               "cli_cache_in_memory": dp_launched["cache_in_memory"]}
     print("[7] seconds by phase: "
           + " ".join(f"{k}={v:.1f}" for k, v in seconds.items())
           + f"; total {time.perf_counter() - t0:.1f} | {card}", flush=True)

@@ -76,9 +76,12 @@ def _parse_scalar(s: str):
 def apply_overrides(raw: dict, overrides: List[str],
                     seen: Optional[set] = None) -> dict:
     """Apply ``--model.batch_size 1`` / ``--trainer.devices=1`` style
-    dot-overrides to the parsed yaml ``raw``; ``--model.<k>`` addresses
-    ``model.init_args.<k>``. ``seen``, if given, collects the resolved
-    dotted keys."""
+    dot-overrides to the parsed yaml ``raw``; ``--model.<k>`` and the
+    Lightning CLI's own ``--model.init_args.<k>`` address
+    ``model.init_args.<k>`` (the JAX package's loader nests the second form
+    under ``init_args.init_args``, where nothing reads it). Values are
+    parsed as YAML scalars (``true`` a bool, ``872`` an int). ``seen``, if
+    given, collects the resolved dotted keys."""
     i = 0
     while i < len(overrides):
         tok = overrides[i]
@@ -93,10 +96,9 @@ def apply_overrides(raw: dict, overrides: List[str],
                 raise ValueError(f"missing value for {tok}")
             val = overrides[i + 1]
             i += 2
-        if key.startswith("model."):
+        if key.startswith("model.") and not key.startswith("model.init_args."):
             key = "model.init_args." + key[len("model."):]
-            _deep_set(raw, key, _parse_scalar(val))
-        elif key == "ckpt_path":
+        if key == "ckpt_path":
             raw["ckpt_path"] = val
         else:
             _deep_set(raw, key, _parse_scalar(val))

@@ -17,13 +17,20 @@ a missing NPY is rendered from the frame JSON's 2D joints
 (:func:`~egorear_tpu_torch.ops.heatmap.render_gaussian_targets_np`).
 Batching and the transfer to the card are :mod:`egorear_tpu_torch.data.loader`'s.
 
-Reference quirk kept: the syn single-view heatmap dataset reads only the
-FIRST line of its split file (``lines[0:1]``) unless ``all_split_lines``.
+With ``device_preprocess`` the multi-view samples hold the decoded views as
+``img_u8`` (V, S, S, 3) uint8 (PIL-resized only when S differs from the
+file's size: at ``image_size`` 872 the host just decodes) and the frame
+JSON's 2D joints as ``joints_2d`` (V, 16, 2); no NPY is read. The task's
+``prepare_batch`` normalises, resizes to 256 px and renders the targets on
+the batch's device (:mod:`egorear_tpu_torch.data.preprocess`).
 
-Not ported: the native decoder (``use_native_loader=True``) and the uint8
-samples of the on-device preprocessing (``device_preprocess=True``), both
-of which raise (ROADMAP Queue A, host decode and ``img_u8`` device
-preprocessing).
+Reference quirks kept: the syn single-view heatmap dataset reads only the
+FIRST line of its split file (``lines[0:1]``) unless ``all_split_lines``,
+and, as the JAX package's, ignores ``device_preprocess`` (its items stay
+normalised float32 at ``image_size``).
+
+Not ported: the native decoder (``use_native_loader=True``), which raises
+(ROADMAP Queue A, host decode).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 from PIL import Image
 
+from egorear_tpu_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from egorear_tpu_torch.ops.heatmap import render_gaussian_targets_np
 
 CAMERA_NAMES = (
@@ -51,9 +59,6 @@ JOINT_NAMES = (
     "LeftHand", "RightHand", "LeftUpLeg", "RightUpLeg", "LeftLeg", "RightLeg",
     "LeftFoot", "RightFoot", "LeftToeBase", "RightToeBase",
 )
-
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def _cameras_for(camera_pos: str) -> Sequence[str]:
@@ -71,6 +76,20 @@ def load_image(path: str, image_size: int = 256) -> np.ndarray:
     arr = np.asarray(img, np.float32) / 255.0
     arr = (arr - IMAGENET_MEAN) / IMAGENET_STD
     return arr.transpose(2, 0, 1)
+
+
+def load_image_u8(path: str, image_size: int = 256) -> np.ndarray:
+    """Decode + BICUBIC resize only -> (S, S, 3) uint8, for the on-device
+    preprocessing (PIL returns a copy when the size is the file's)."""
+    img = Image.open(path).convert("RGB")
+    img = img.resize([image_size, image_size], Image.BICUBIC)
+    return np.asarray(img, np.uint8)
+
+
+def _pose_of(json_data: dict) -> np.ndarray:
+    """The frame's 16 x 3 ``device_pts3d`` pose (cm)."""
+    return np.array(
+        [json_data["joints"][j]["device_pts3d"] for j in JOINT_NAMES], np.float32)
 
 
 def _render_heatmap_from_json(json_data: dict, camera: str) -> np.ndarray:
@@ -102,11 +121,6 @@ class _Ego4ViewBase:
             raise NotImplementedError(
                 "use_native_loader: the native JPEG/PNG decoder is not ported "
                 "(ROADMAP Queue A, host decode); images are decoded with PIL")
-        if device_preprocess:
-            raise NotImplementedError(
-                "device_preprocess: the uint8 on-device preprocessing "
-                "(data/preprocess.py) is not ported (ROADMAP Queue A, img_u8 "
-                "device preprocessing)")
         # Every decoded sample stays resident (about len x sample size):
         # epochs after the first skip the decode.
         self._cache: Optional[dict] = {} if cache_in_memory else None
@@ -116,6 +130,7 @@ class _Ego4ViewBase:
         self.cameras = _cameras_for(self.camera_pos)
         self.image_size = image_size
         self.render_missing_heatmaps = render_missing_heatmaps
+        self.device_preprocess = device_preprocess
         self.json_dir = "json_smplx_gendered" if variant == "syn" else "json_smplx"
         self.img_ext = ".jpg" if variant == "syn" else ".png"
         self.frames = self._collect(info_json, pre_shuffle)
@@ -123,6 +138,21 @@ class _Ego4ViewBase:
     def _load_images(self, paths) -> np.ndarray:
         """-> (len(paths), 3, S, S) normalised float32."""
         return np.stack([load_image(p, self.image_size) for p in paths])
+
+    def _load_images_u8(self, paths) -> np.ndarray:
+        """-> (len(paths), S, S, 3) uint8."""
+        return np.stack([load_image_u8(p, self.image_size) for p in paths])
+
+    def _load_views_device(self, frame: str):
+        """The uint8 views (V, S, S, 3), the 2D joints (V, 16, 2) in source
+        pixels and the frame's JSON."""
+        imgs = self._load_images_u8([self._img_path(frame, c) for c in self.cameras])
+        with open(frame) as f:
+            data = json.load(f)
+        joints_2d = np.array(
+            [[data["joints"][j][f"{c}_pts2d"] for j in JOINT_NAMES]
+             for c in self.cameras], np.float32)
+        return imgs, joints_2d, data
 
     def _collect(self, info_json: str, pre_shuffle: bool) -> List[str]:
         frames: List[str] = []
@@ -177,9 +207,7 @@ class _Ego4ViewBase:
 
     def _load_pose(self, frame: str) -> np.ndarray:
         with open(frame) as f:
-            data = json.load(f)
-        return np.array(
-            [data["joints"][j]["device_pts3d"] for j in JOINT_NAMES], np.float32)
+            return _pose_of(json.load(f))
 
     def _load_coord_trans(self, frame: str) -> np.ndarray:
         # The reference: frame_path.split("-")[0] + "_metadata.json", i.e.
@@ -258,6 +286,9 @@ class HeatmapMVFDataset(_Ego4ViewBase):
 
     def _get_item(self, idx) -> Dict[str, np.ndarray]:
         frame = self.frames[idx]
+        if self.device_preprocess:
+            img_u8, joints_2d, _ = self._load_views_device(frame)
+            return {"img_u8": img_u8, "joints_2d": joints_2d, "frame_path": frame}
         img, hm = self._load_views(frame)
         return {"img": img, "gt_heatmap": hm, "frame_path": frame}
 
@@ -268,9 +299,14 @@ class Pose3DDataset(_Ego4ViewBase):
 
     def _get_item(self, idx) -> Dict[str, np.ndarray]:
         frame = self.frames[idx]
-        img, hm = self._load_views(frame)
-        out = {"img": img, "gt_heatmap": hm, "gt_pose": self._load_pose(frame),
-               "frame_path": frame}
+        if self.device_preprocess:
+            img_u8, joints_2d, data = self._load_views_device(frame)
+            out = {"img_u8": img_u8, "joints_2d": joints_2d,
+                   "gt_pose": _pose_of(data), "frame_path": frame}
+        else:
+            img, hm = self._load_views(frame)
+            out = {"img": img, "gt_heatmap": hm, "gt_pose": self._load_pose(frame),
+                   "frame_path": frame}
         if self.variant == "rw":
             out["coord_trans_mat"] = self._load_coord_trans(frame)
         return out

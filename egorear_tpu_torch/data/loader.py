@@ -1,13 +1,16 @@
 """Batched host loader with threaded decode and transfer to the card (the
 JAX package's ``data/loader.py``, one process).
 
-A thread pool of ``num_workers`` decodes samples (PIL releases the GIL),
-:data:`PREFETCH` batches are in flight beyond the one being consumed, and
-each collated batch is moved to ``device`` one batch ahead of the consumer:
-``torch.from_numpy(...).pin_memory().to(device, non_blocking=True)`` for a
-CUDA device; on the CPU (or ``device=None``) batches are host tensors.
-Arrays are stacked; other fields (``frame_path``) become lists and stay on
-the host.
+A thread pool of ``num_workers`` decodes samples (PIL releases the GIL)
+and each worker copies its sample's arrays straight into its row of the
+batch's tensors, which lie in pinned memory when ``device`` is a CUDA
+device: the consumer's thread neither stacks nor pins a batch (a stage-2
+batch of uint8 872-px views is 584 MB). :data:`PREFETCH` batches are in
+flight beyond the one being consumed, and each batch is moved to
+``device`` one batch ahead of the consumer (``.to(device,
+non_blocking=True)`` from the pinned rows); on the CPU (or
+``device=None``) batches are host tensors. Other fields (``frame_path``)
+become lists and stay on the host.
 
 The batch-index sequence is the JAX loader's: ``np.random.default_rng(seed
 + epoch)`` shuffles the indices, ``drop_last`` drops a partial last batch,
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -28,6 +32,40 @@ import torch
 
 # Batches being decoded beyond the one the consumer holds.
 PREFETCH = 2
+
+
+class _Batch:
+    """One batch that the workers fill: the first sample to arrive sets
+    each array field's (n, ...) tensor (pinned when ``pin``), and every
+    sample's arrays are copied into their row; other fields are kept by
+    row in lists."""
+
+    def __init__(self, n: int, pin: bool):
+        self.n, self.pin = n, pin
+        self.lock = threading.Lock()
+        self.keys = None
+        self.tensors, self.rows, self.lists = {}, {}, {}
+
+    def put(self, j: int, sample: dict) -> None:
+        with self.lock:
+            if self.keys is None:
+                for k, v in sample.items():
+                    if isinstance(v, np.ndarray):
+                        dtype = torch.from_numpy(np.empty(0, v.dtype)).dtype
+                        t = torch.empty((self.n,) + v.shape, dtype=dtype,
+                                        pin_memory=self.pin)
+                        self.tensors[k], self.rows[k] = t, t.numpy()
+                    else:
+                        self.lists[k] = [None] * self.n
+                self.keys = list(sample)
+        for k, rows in self.rows.items():
+            rows[j] = sample[k]
+        for k, values in self.lists.items():
+            values[j] = sample[k]
+
+    def result(self) -> dict:
+        return {k: self.tensors[k] if k in self.tensors else self.lists[k]
+                for k in self.keys}
 
 
 class DataLoader:
@@ -68,28 +106,27 @@ class DataLoader:
                     [idxs, np.repeat(idxs[-1:], self.batch_size - true_n)])
             yield idxs, true_n
 
-    @staticmethod
-    def _collate(samples):
-        batch = {}
-        for k in samples[0]:
-            vals = [s[k] for s in samples]
-            batch[k] = np.stack(vals) if isinstance(vals[0], np.ndarray) else vals
-        return batch
+    def _fill(self, batch: _Batch, j: int, i: int) -> None:
+        batch.put(j, self.dataset[i])
 
     def _host_batches(self) -> Iterator[dict]:
+        pin = self.device is not None and self.device.type == "cuda"
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
             pending = collections.deque()
 
             def finish():
-                futures, true_n = pending.popleft()
-                batch = self._collate([f.result() for f in futures])
+                batch, futures, true_n = pending.popleft()
+                for f in futures:
+                    f.result()
+                out = batch.result()
                 if self.pad_last:
-                    batch["__valid_n__"] = true_n
-                return batch
+                    out["__valid_n__"] = true_n
+                return out
 
             for idxs, true_n in self._batch_indices():
-                pending.append(([pool.submit(self.dataset.__getitem__, int(i))
-                                 for i in idxs], true_n))
+                batch = _Batch(len(idxs), pin)
+                pending.append((batch, [pool.submit(self._fill, batch, j, int(i))
+                                        for j, i in enumerate(idxs)], true_n))
                 if len(pending) > PREFETCH:
                     yield finish()
             while pending:
@@ -105,14 +142,8 @@ class DataLoader:
             yield queue.popleft()
 
     def _transfer(self, batch: dict) -> dict:
-        out = {}
-        for k, v in batch.items():
-            if isinstance(v, np.ndarray):
-                t = torch.from_numpy(v)
-                if self.device is not None and self.device.type == "cuda":
-                    t = t.pin_memory().to(self.device, non_blocking=True)
-                out[k] = t
-            else:
-                out[k] = v
-        return out
+        if self.device is None or self.device.type != "cuda":
+            return batch
+        return {k: v.to(self.device, non_blocking=True) if torch.is_tensor(v) else v
+                for k, v in batch.items()}
 

@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
+from egorear_tpu_torch.data.preprocess import preprocess_batch_device
 from egorear_tpu_torch.models.configs import EgoRearNetCfg, EncoderCfg, MVFexNetCfg
 from egorear_tpu_torch.models.heatmap_net import HeatmapNet
 from egorear_tpu_torch.models.layers import init_weights
@@ -52,13 +53,18 @@ Metrics = Dict[str, torch.Tensor]
 
 
 def prepare_batch(batch: dict) -> dict:
-    """Host-prepared batches pass through. The uint8 device path of the JAX
-    package (``img_u8``: normalisation and Gaussian target rendering on the
-    device) is not ported yet and raises."""
-    if "img_u8" in batch:
-        raise NotImplementedError("uint8 batches (img_u8) need the data "
-                                  "slice's device preprocessing")
-    return batch
+    """The on-device preprocessing of a uint8 batch (the datasets'
+    ``device_preprocess`` items): ``img_u8`` (B, V, H, W, 3) becomes the
+    normalised 256-px ``img`` and, unless the batch has a ``gt_heatmap``,
+    the 15 Gaussian targets without Head are rendered from ``joints_2d``,
+    all on the batch's device (:mod:`egorear_tpu_torch.data.preprocess`).
+    Host-prepared batches pass through untouched."""
+    if "img_u8" not in batch:
+        return batch
+    out = {k: v for k, v in batch.items() if k not in ("img_u8", "joints_2d")}
+    out.update(preprocess_batch_device(
+        batch["img_u8"], None if "gt_heatmap" in batch else batch.get("joints_2d")))
+    return out
 
 
 def _per_view_mse_sum(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -160,14 +166,21 @@ class _Task:
             return self.model(*args)
         return functional_call(self.model, params, args)
 
+    def _forward_args(self, batch: dict) -> tuple:
+        return (batch["img"],)
+
     def _batch_forward(self, batch: dict, params=None):
-        return self.forward(batch["img"], params)
+        """``(prepared batch, model outputs)``: every path that reads a
+        batch's ``img`` or ``gt_heatmap`` takes it from here, after
+        :func:`prepare_batch`."""
+        batch = prepare_batch(batch)
+        img, *ctm = self._forward_args(batch)
+        return batch, self.forward(img, params, *ctm)
 
     @torch.no_grad()
     def _eval_forward(self, batch: dict):
-        batch = prepare_batch(batch)
         self.model.eval()
-        return batch, self._batch_forward(batch)
+        return self._batch_forward(batch)
 
 
 class HeatmapTask(_Task):
@@ -192,8 +205,7 @@ class HeatmapTask(_Task):
 
     def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None
              ) -> Tuple[torch.Tensor, Metrics]:
-        batch = prepare_batch(batch)
-        pred = self._batch_forward(batch, params)
+        batch, pred = self._batch_forward(batch, params)
         loss = _per_view_mse_sum(pred, batch["gt_heatmap"]) * self.w_heatmap
         return loss, {"heatmap_loss": loss}
 
@@ -232,8 +244,7 @@ class MVFexTask(_Task):
 
     def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None
              ) -> Tuple[torch.Tensor, Metrics]:
-        batch = prepare_batch(batch)
-        hms, _ = self._batch_forward(batch, params)
+        batch, (hms, _) = self._batch_forward(batch, params)
         metrics = {}
         total = 0.0
         for i, hm in enumerate(hms):
@@ -312,16 +323,14 @@ class Pose3DTask(_Task):
     def _args(self, img, coord_trans_mat):
         return (img, self.rig, coord_trans_mat)
 
-    def _batch_forward(self, batch: dict, params=None):
-        ctm = batch.get("coord_trans_mat") if self.is_rw else None
-        return self.forward(batch["img"], params, ctm)
+    def _forward_args(self, batch: dict) -> tuple:
+        return batch["img"], batch.get("coord_trans_mat") if self.is_rw else None
 
     def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None
              ) -> Tuple[torch.Tensor, Metrics]:
         """``(total, metrics)`` of one batch; the model's train/eval mode is
         the caller's (the trainer's step sets train mode)."""
-        batch = prepare_batch(batch)
-        preds3d, hms = self._batch_forward(batch, params)
+        batch, (preds3d, hms) = self._batch_forward(batch, params)
         metrics = {}
         total = 0.0
         for i, p in enumerate(preds3d):

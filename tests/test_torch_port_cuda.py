@@ -2,7 +2,8 @@
 ops (lazy and per-head): their input checks (on the CPU) and the kernels
 against their plain versions (on a card). Also on a card: a stage-2 train
 step's kernel launches, a checkpoint round trip, the ImageNet graft, the
-loader's pinned transfer and a stage-2 ``fit`` through the CLI.
+loader's pinned transfer, a stage-2 ``fit`` through the CLI, and the uint8
+on-device preprocessing (the resize with TF32 on, a uint8 stage-2 step).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. On a machine with an NVIDIA GPU and nvcc, from
@@ -1043,13 +1044,15 @@ def test_imagenet_graft_lands_in_the_model_dtype_on_card():
 @pytest.mark.cuda
 def test_loader_moves_batches_to_the_card_pinned(monkeypatch):
     """``DataLoader(device="cuda")``: every array field on the card and
-    equal to its host batch, each through pinned host memory; lists and
-    ``__valid_n__`` stay on the host."""
+    equal to its host batch, each copied from pinned host memory (the
+    workers fill pinned rows); lists and ``__valid_n__`` stay on the
+    host."""
     _needs_card()
     pinned = []
-    pin = torch.Tensor.pin_memory
-    monkeypatch.setattr(torch.Tensor, "pin_memory",
-                        lambda self, *a: pinned.append(1) or pin(self, *a))
+    to = torch.Tensor.to
+    monkeypatch.setattr(torch.Tensor, "to",
+                        lambda self, *a, **k: pinned.append(self.is_pinned())
+                        or to(self, *a, **k))
     from egorear_tpu_torch.data.loader import DataLoader
 
     class Samples:
@@ -1061,13 +1064,14 @@ def test_loader_moves_batches_to_the_card_pinned(monkeypatch):
                     "frame_path": f"f{i}"}
 
     host = list(DataLoader(Samples(), 2, pad_last=True))
+    assert not pinned
     card = list(DataLoader(Samples(), 2, pad_last=True, device="cuda"))
+    assert pinned == [True] * (2 * len(card))
     assert [b["__valid_n__"] for b in card] == [2, 2, 1]
     for h, c in zip(host, card):
         for k in ("x", "i"):
             assert c[k].is_cuda and torch.equal(c[k].cpu(), h[k]), k
         assert c["frame_path"] == h["frame_path"]
-    assert len(pinned) == 2 * len(card)
 
 
 @pytest.mark.cuda
@@ -1176,4 +1180,78 @@ def test_v2_and_rw_steps_launch_the_lazy_kernels_on_card(stage, views, camera_mo
     metrics = trainer.train_step(batch)
     torch.cuda.synchronize()
     assert [fn.launches for fn in counters] == [want, want, 0, 0]
+    assert bool(torch.isfinite(metrics["loss_total"]))
+
+
+# -- the uint8 on-device preprocessing on the card ----------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tf32", ["legacy", "new_api"])
+def test_device_preprocess_ignores_tf32_on_card(tf32):
+    """With TF32 matmuls switched on globally (by either API) the card's
+    resize stays full fp32: within one LSB of the CPU's, at most 1e-3 of the
+    values off by one, the normalised images within one LSB, the targets
+    within 1e-6, and the caller's setting is back after the call."""
+    _needs_card()
+    from egorear_tpu_torch.data.preprocess import (
+        IMAGENET_STD,
+        preprocess_batch_device,
+        resize_bicubic_device,
+    )
+
+    rng = np.random.default_rng(8)
+    u8 = torch.from_numpy(rng.integers(0, 255, size=(2, 4, 872, 872, 3), dtype=np.uint8))
+    joints = torch.from_numpy(rng.uniform(-50, 900, size=(2, 4, 16, 2)).astype(np.float32))
+    cpu = preprocess_batch_device(u8, joints)
+    cpu_levels = resize_bicubic_device(u8) * 255.0
+    mm = torch.backends.cuda.matmul
+    legacy, new = torch.get_float32_matmul_precision(), mm.fp32_precision
+    try:
+        if tf32 == "legacy":
+            torch.set_float32_matmul_precision("high")
+        else:
+            mm.fp32_precision = "tf32"
+        want_setting = mm.fp32_precision
+        card = preprocess_batch_device(u8.cuda(), joints.cuda())
+        levels = resize_bicubic_device(u8.cuda()) * 255.0
+        assert mm.fp32_precision == want_setting == "tf32"
+        assert card["img"].device.type == "cuda" and card["gt_heatmap"].is_cuda
+    finally:
+        mm.fp32_precision = new
+        torch.set_float32_matmul_precision(legacy)
+    off = (levels.cpu() - cpu_levels).abs()
+    assert float(off.max()) <= 1.0 + 1e-4 and float((off > 0.5).float().mean()) <= 1e-3
+    tol = (1.0 / 255.0) / float(IMAGENET_STD.min()) + 1e-4
+    assert float((card["img"].cpu() - cpu["img"]).abs().max()) <= tol
+    assert float((card["gt_heatmap"].cpu() - cpu["gt_heatmap"]).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_u8_stage2_step_launches_the_lazy_kernels_on_card():
+    """A stage-2 train step (256 px after the card's resize, b2, fp32) on a
+    uint8 batch that lies on the card: 4 + 4 lazy launches, a finite loss."""
+    _needs_card()
+    import copy
+
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.train.tasks import MVFexTask
+    from egorear_tpu_torch.train.trainer import Trainer
+
+    cfg = copy.deepcopy(entry.STAGE2_CFG)
+    cfg["encoder_cfg"]["resnet_cfg"]["use_imagenet_pretrain"] = False
+    trainer = Trainer(MVFexTask(cfg, device="cuda"), 1e-5, 5e-3, (8,), 2)
+    trainer.init_state(steps_per_epoch=10)
+    rng = np.random.default_rng(9)
+    batch = {"img_u8": torch.from_numpy(rng.integers(0, 255, size=(2, 4, 872, 872, 3),
+                                                     dtype=np.uint8)).cuda(),
+             "joints_2d": torch.from_numpy(rng.uniform(0, 872, size=(2, 4, 16, 2)
+                                                       ).astype(np.float32)).cuda()}
+    counters = (lazy_deform_sample, lazy_deform_sample_backward,
+                deformable_sampling, deformable_sampling_backward)
+    for fn in counters:
+        fn.launches = 0
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [4, 4, 0, 0]
     assert bool(torch.isfinite(metrics["loss_total"]))

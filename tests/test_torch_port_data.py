@@ -22,6 +22,7 @@ from __future__ import annotations
 import glob
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -171,9 +172,8 @@ def test_cache_in_memory_and_refused_options(trees):
     want = jax_get_dataset("ego4view_syn_pose3d", root, "train",
                            use_native_loader=False, render_missing_heatmaps=True)[1]
     _assert_items_equal(again, want)
-    for bad in ({"use_native_loader": True}, {"device_preprocess": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_dataset("ego4view_syn_pose3d", root, "train", **bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_dataset("ego4view_syn_pose3d", root, "train", use_native_loader=True)
 
 
 # -- loader ----------------------------------------------------------------------
@@ -222,6 +222,44 @@ def test_loader_sequence_matches_jax(n, batch, shuffle, drop_last, pad_last):
                     assert g[k] == wv, k
     if pad_last and n % batch:
         assert got[-1]["__valid_n__"] == n % batch
+
+
+def test_loader_rows_survive_many_racing_workers():
+    """More workers than cores fill each batch's rows at once (the first
+    sample to arrive allocates the batch), with a short switch interval:
+    every row and list entry is its own sample's, none lost or swapped."""
+    import sys
+    import threading
+
+    class Jittered(_Indexed):
+        def __getitem__(self, i):
+            time.sleep(0.0005 * (i * 7 % 5))  # vary the arrival order
+            return super().__getitem__(i)
+
+    n, batch = 203, 16
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        done = []
+        worker = threading.Thread(target=lambda: done.append(list(DataLoader(
+            Jittered(n), batch, shuffle=True, seed=3, num_workers=4 * os.cpu_count(),
+            pad_last=True))))
+        worker.start()
+        worker.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not worker.is_alive() and len(done) == 1
+    batches = done[0]
+    order = np.arange(n)
+    np.random.default_rng(3).shuffle(order)
+    assert len(batches) == -(-n // batch)
+    for b, start in zip(batches, range(0, n, batch)):
+        idxs = order[start:start + batch]
+        idxs = np.concatenate([idxs, np.repeat(idxs[-1:], batch - len(idxs))])
+        assert b["i"].tolist() == idxs.tolist()
+        np.testing.assert_array_equal(b["x"].numpy(), np.broadcast_to(
+            idxs[:, None, None].astype(np.float32), (batch, 2, 3)))
+        assert b["frame_path"] == [f"f{i}" for i in idxs]
 
 
 def test_loader_batches_dataset_items(trees):

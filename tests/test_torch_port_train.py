@@ -367,8 +367,8 @@ def test_eval_and_predict_match_jax(cascade):
         np.testing.assert_allclose(pred[k].numpy(), want_pred[k], atol=9e-3, rtol=0)
 
 
-@pytest.mark.parametrize("fault", ["dropout", "img_u8", "precision",
-                                   "imagenet", "real_world_rig"])
+@pytest.mark.parametrize("fault", ["dropout", "precision", "imagenet",
+                                   "real_world_rig"])
 def test_unported_training_paths_raise(fault, monkeypatch, tmp_path):
     cfg = flagship_cfg_dict((SIZE, SIZE))
     if fault == "imagenet":
@@ -398,12 +398,9 @@ def test_unported_training_paths_raise(fault, monkeypatch, tmp_path):
     if fault == "dropout":
         with pytest.raises(NotImplementedError):
             Trainer(task, LR, WD, DECAY_EPOCHS, WARMUP)
-    elif fault == "precision":
+    else:
         with pytest.raises(ValueError):
             Trainer(task, LR, WD, DECAY_EPOCHS, WARMUP, precision="16-mixed")
-    else:
-        with pytest.raises(NotImplementedError):
-            task.loss({"img_u8": torch.zeros(B, 4, SIZE, SIZE, 3, dtype=torch.uint8)})
 
 
 def _leaf_errors(got: dict, want: dict):
