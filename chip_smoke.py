@@ -28,8 +28,8 @@ beside the card's name and power limit:
      kernel 7 times per forward;
   5. take one fp32 training step (256 px, batch 2, TF32 off) through the
      plain versions and one through the kernels from the same state, the
-     kernel step's ReLUs on the plain step's side of their kink
-     (:func:`pinned_relus`), and compare gradients, parameters and BN
+     kernel step's ReLUs and max-pools on the plain step's side of their
+     kink (:func:`pinned_relus`), and compare gradients, parameters and BN
      running stats;
   6. train the flagship as users would (``entry.build_train``, bf16-mixed,
      batch 32, the configured schedule) and check that every step launched
@@ -136,6 +136,25 @@ The uint8 on-device preprocessing (``device_preprocess``) through the CLI:
      ``cache_in_memory``, each epoch's rate and loader-bound share and the
      cache's resident bytes.
 
+The model branches that no shipped yaml sets (:data:`BRANCHES`: the MVFex
+query modes, ``use_1by1_conv``, the 512-channel head, dense
+cross-attention in either stage, stage 3 without ``use_pred_heatmap_init``,
+the avgpool and heatmap 3D proposals, ``norm_mlp_pred``), at full width:
+
+  15. a: the lazy forward and backward kernels at the 512-channel head's
+     shapes (Cin = 512; the pose3d ``d_feat`` block takes 229,924 of the
+     232,448 bytes of shared memory) against their plain versions, as
+     phases 2 and 2b; b: for each branch, in the lazy order and (but for
+     dense cross-attention) the reference order, on one seeded build per
+     order, phase 3's forward and phase 5's train step kernels vs plain,
+     the step with every dropout at 0.1 (both sides draw the same masks),
+     and b16 bf16 serving forwards of the same weights BN-folded
+     (:data:`BRANCH_SERVE`); the launches exact, none in a dense stage
+     (:func:`launches_per_forward` of the branch's config); c: ``fit`` of
+     stage 2 with ``use_1by1_conv`` and ``ffn_drop`` 0.1, and of stage 3
+     with the heatmap proposal and without ``use_pred_heatmap_init``,
+     through the CLI on phase 12's tree.
+
 Every phase that drives the main path sets the launch counts of all four
 kernels to 0 just before it and reads them just after.
 
@@ -149,6 +168,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import json
 import math
 import os
@@ -173,21 +193,42 @@ SHAPES = {
     "mvfex": dict(B=64, Q=15, nh=4, P=16, H=64, Cin=128, G=4, C=256),
     "pose3d": dict(B=64, Q=16, nh=4, P=16, H=64, Cin=128, G=0, C=0),
 }
-# Kernel launches per forward: the V MVFex refiners run as a loop of V
-# modules, one launch each for their one layer (models/mvfex.py), then the 3
-# lifting layers one each (models/pose3d.py). A CPU rehearsal, where no
-# kernel launches, sets both constants to 0.
-LAUNCHES_PER_REFINER, LAUNCHES_POSE3D = 1, 3
+# Sampling-kernel launches per deformable cross-attention layer and call:
+# the V MVFex refiners run as a loop of V modules (models/mvfex.py), and
+# each refiner layer and each lifting layer (models/pose3d.py) launches
+# once. A CPU rehearsal, where no kernel launches, sets it to 0.
+LAUNCHES_PER_LAYER = 1
 
 
-def launches_mvfex(views: int = 4) -> int:
-    """Sampling-kernel launches of one forward of the V-view refiners."""
-    return views * LAUNCHES_PER_REFINER
+def flagship_cfg():
+    """The flagship's ``EgoRearNetCfg``, which the launch counts below
+    take when given no config."""
+    from egorear_tpu_torch import entry
+
+    return entry.flagship_cfg()
 
 
-def launches_per_forward(views: int = 4) -> int:
-    """Sampling-kernel launches of one V-view cascade forward."""
-    return launches_mvfex(views) + LAUNCHES_POSE3D
+def launches_mvfex(views: int = 4, cfg=None) -> int:
+    """Sampling-kernel launches of one forward of the V-view refiners of
+    ``cfg`` (an ``EgoRearNetCfg``, by default the flagship's): one a layer
+    each, none where the refiners attend densely."""
+    mvf = (cfg or flagship_cfg()).heatmap_mvf.mvf
+    dense = mvf.transformer.use_normal_cross_attn
+    return 0 if dense else views * mvf.num_former_layers * LAUNCHES_PER_LAYER
+
+
+def launches_pose3d(cfg=None) -> int:
+    """Sampling-kernel launches of one forward of the lifting layers of
+    ``cfg`` (by default the flagship's): one a layer, none where they
+    attend densely."""
+    p = (cfg or flagship_cfg()).pose3d
+    dense = p.transformer.use_normal_cross_attn
+    return 0 if dense else p.num_former_layers * LAUNCHES_PER_LAYER
+
+
+def launches_per_forward(views: int = 4, cfg=None) -> int:
+    """Sampling-kernel launches of one V-view cascade forward of ``cfg``."""
+    return launches_mvfex(views, cfg) + launches_pose3d(cfg)
 
 
 SERVE_BATCH, SERVE_WARMUP, SERVE_TIMED = 16, 3, 10
@@ -203,6 +244,7 @@ TRAIN_STAT_TOL = 1e-4  # BN running stats after the step, max-abs
 TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 32, 3, 10
 PROFILED_STEPS = 3  # steps under torch.profiler after a timed run
 TRAIN_SIZE, TRAIN_DEVICE = 256, "cuda"  # a CPU rehearsal may shrink them
+ANCHOR_SEEDS = 8  # seeds phase 5 (and 15b) may try for partly valid anchors
 
 # Per-head sampling (the reference order) at the flagship, batch 16: value
 # (B, 64, 64, nh, ch) = value_proj of the (4 x 16, 4096, C) memory; MVFex
@@ -252,14 +294,29 @@ def kernel_names(lazy: bool) -> tuple:
             else ("deform_sample", "deform_sample_bwd"))
 
 
-def expected_launches(lazy: bool, forwards: int, backwards: int) -> dict:
+def refiners_backward(cfg=None) -> bool:
+    """Whether a stage-3 step's loss reaches the refiners' sampling in the
+    cascade ``cfg`` (by default the flagship's): through their heatmaps
+    unless ``detach_heatmap_feat``, or through their features, which the
+    lifter reads for its memory without ``use_pred_heatmap_init`` and for
+    the proposal unless that reads the (then detached) heatmaps."""
+    cfg = cfg or flagship_cfg()
+    hm = cfg.heatmap_mvf
+    return (not hm.detach_heatmap_feat or not hm.use_pred_heatmap_init
+            or not cfg.pose3d.use_mlp_heatmap)
+
+
+def expected_launches(lazy: bool, forwards: int, backwards: int,
+                      cfg=None) -> dict:
     """Launch counts of a main-path run of ``forwards`` forwards and
-    ``backwards`` backwards in one computation order: the other order's
-    kernels never launch."""
+    ``backwards`` backwards of ``cfg`` (by default the flagship's) in one
+    computation order: the other order's kernels never launch, and the
+    refiners' backward only where the loss reaches them."""
     fwd, bwd = kernel_names(lazy)
     want = dict.fromkeys(KERNELS, 0)
-    want[fwd] = forwards * launches_per_forward()
-    want[bwd] = backwards * launches_per_forward()
+    want[fwd] = forwards * launches_per_forward(cfg=cfg)
+    want[bwd] = backwards * (launches_pose3d(cfg) + (
+        launches_mvfex(cfg=cfg) if refiners_backward(cfg) else 0))
     return want
 
 
@@ -453,17 +510,17 @@ def max_err(got, want):
     return max(errs), scale
 
 
-def phase_kernels(card, model_locs):
-    """Kernel vs plain version on the card at both flagship shapes, fp32 and
-    bf16, with uniform locations and with the model's own; each bf16 call
-    must give bitwise equal outputs in two runs."""
+def phase_kernels(card, model_locs, shapes=None, tag="[2]"):
+    """Kernel vs plain version on the card at both flagship shapes (or
+    ``shapes``), fp32 and bf16, with uniform locations and with the model's
+    own; each bf16 call must give bitwise equal outputs in two runs."""
     from egorear_tpu_torch.ops.deform_attn import (
         lazy_deform_sample, lazy_deform_sample_plain)
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     record = None
-    cases = [(name, shape, dtype, locs) for name, shape in SHAPES.items()
+    cases = [(name, shape, dtype, locs) for name, shape in (shapes or SHAPES).items()
              for dtype in (torch.float32, torch.bfloat16)
              for locs in ("uniform", "model")]
     for name, shape, dtype, locs in cases:
@@ -512,7 +569,7 @@ def phase_kernels(card, model_locs):
             buf, grid, mode="bilinear", padding_mode="zeros",
             align_corners=False))
         bound_ms, bound_by = lazy_sample_bound_ms(feat, loc, attn_w, pos, block)
-        print(f"[2] lazy_deform_sample {name} {str(dtype)[6:]} {locs} "
+        print(f"{tag} lazy_deform_sample {name} {str(dtype)[6:]} {locs} "
               f"B={shape['B']} Q={shape['Q']} nh={shape['nh']} "
               f"P={shape['P']} {side}x{side} Cin={Cin} C={shape['C']}: "
               f"corners in grid {in_grid:.4f}, repeated in a (b, q) "
@@ -559,9 +616,9 @@ def grid_sample_backward_ms(feat, loc, pos, shape):
                                                retain_graph=True))
 
 
-def phase_backward_kernels(card, model_locs):
+def phase_backward_kernels(card, model_locs, shapes=None, tag="[2b]"):
     """Backward kernels vs plain version on the card at both flagship
-    shapes, fp32 and bf16, with uniform locations and with the model's own,
+    shapes (or ``shapes``), fp32 and bf16, with uniform locations and with the model's own,
     with and without d_feat; d_feat must come out bitwise equal from two
     runs."""
     from egorear_tpu_torch.ops.deform_attn import (
@@ -571,7 +628,7 @@ def phase_backward_kernels(card, model_locs):
     record = None
     names = ("d_feat", "d_loc", "d_attn_w", "d_pos")
     main_path = {}  # locations -> ms of the bf16 main-path calls of one step
-    cases = [(name, shape, dtype, locs) for name, shape in SHAPES.items()
+    cases = [(name, shape, dtype, locs) for name, shape in (shapes or SHAPES).items()
              for dtype in (torch.float32, torch.bfloat16)
              for locs in ("uniform", "model")]
     for name, shape, dtype, locs in cases:
@@ -619,7 +676,7 @@ def phase_backward_kernels(card, model_locs):
             bound_ms, bound_by = lazy_sample_backward_bound_ms(
                 feat, loc, attn_w, pos, block, need_feat)
             err_txt = " ".join(f"{n}={e:.2e}" for n, e in errs.items())
-            print(f"[2b] lazy_deform_sample_bwd {name} {str(dtype)[6:]} {locs} "
+            print(f"{tag} lazy_deform_sample_bwd {name} {str(dtype)[6:]} {locs} "
                   f"B={shape['B']} d_feat={'yes' if need_feat else 'no'} "
                   f"corners in grid {in_grid:.4f}, repeated in a (b, q) "
                   f"{repeated:.4f}: max-abs/scale {err_txt} (tol {BWD_TOL[dtype]:g}"
@@ -631,15 +688,15 @@ def phase_backward_kernels(card, model_locs):
             # 3 pose3d calls with it.
             if dtype == torch.bfloat16 and need_feat == (name == "pose3d"):
                 main_path[locs] = main_path.get(locs, 0.0) + (
-                    launches_mvfex() if name == "mvfex" else LAUNCHES_POSE3D) * ms
+                    launches_mvfex() if name == "mvfex" else launches_pose3d()) * ms
             # The record: the refiner call of the bf16 training step.
             if (name == "mvfex" and dtype == torch.bfloat16 and not need_feat
                     and locs == "uniform"):
                 record = dict(max_abs_err=max(abs_errs), ms=ms,
                               plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=library_ms)
-    print(f"[2b] lazy_deform_sample_bwd main path of a bf16 step "
-          f"({launches_mvfex()} x MVFex without d_feat + {LAUNCHES_POSE3D} x "
+    print(f"{tag} lazy_deform_sample_bwd main path of a bf16 step "
+          f"({launches_mvfex()} x MVFex without d_feat + {launches_pose3d()} x "
           f"pose3d with it, kernel times above): "
           + ", ".join(f"{locs} {ms:.4f} ms" for locs, ms in main_path.items())
           + f" | {card}", flush=True)
@@ -885,13 +942,13 @@ def phase_msda_backward_kernels(card, model_locs):
               f"({bound_by}) | {card}", flush=True)
         if dtype == torch.bfloat16:
             main_path[locs] = main_path.get(locs, 0.0) + (
-                launches_mvfex() if name == "mvfex" else LAUNCHES_POSE3D) * ms
+                launches_mvfex() if name == "mvfex" else launches_pose3d()) * ms
         if name == "mvfex" and dtype == torch.bfloat16 and locs == "uniform":
             record = dict(max_abs_err=max(abs_errs), ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms)
     print(f"[2d] deform_sample_bwd main path of a bf16 step ({launches_mvfex()} "
-          f"x MVFex + {LAUNCHES_POSE3D} x pose3d, kernel times above): "
+          f"x MVFex + {launches_pose3d()} x pose3d, kernel times above): "
           + ", ".join(f"{locs} {ms:.4f} ms" for locs, ms in main_path.items())
           + f" | {card}", flush=True)
     if failures:
@@ -912,11 +969,14 @@ def perturb_(model, img, gen):
     """Move the weights away from the init where it makes sampling trivial.
 
     Sampling offsets and attention weights get query-dependent kernels (a few
-    pixels of spread), the refiners' position tables random values, the 3D
-    proposal (of the cascade; ``model`` may be the stage-2 network alone) a
-    random pose spread over the rig's field of view, and the initial heatmap
-    heads a bias that puts the median peak at the 0.5 validity threshold, so
-    about half the 2D anchors are valid.
+    pixels of spread), the refiners' position tables (the query table too,
+    where there is one) random values, the 3D proposal (of the cascade;
+    ``model`` may be the stage-2 network alone) a random pose spread over the
+    rig's field of view (through the inverse of ``norm_mlp_pred``'s map
+    where that is set), and the initial heatmap heads (the conv-stack heads
+    or, with ``use_1by1_conv``, the estimators' own) a bias that puts the
+    median peak at the 0.5 validity threshold, so about half the 2D anchors
+    are valid.
     """
     for m in deform_attns(model):
         fan_in = m.sampling_offsets.weight.shape[1]
@@ -925,32 +985,71 @@ def perturb_(model, img, gen):
     hm_net = getattr(model, "heatmap_estimator", model)
     for r in hm_net.refiners:
         r.frame_feat_multi_view_pos_embed.normal_(0.0, 0.5, generator=gen)
+        if hasattr(r, "query_pos_embed"):
+            r.query_pos_embed.normal_(0.0, 0.5, generator=gen)
     if hm_net is not model:
-        bias = model.pose3d_estimator.mlp_pred_out.bias
+        lifter = model.pose3d_estimator
+        bias = lifter.mlp_pred_out.bias
         u = torch.rand(bias.numel() // 3, 3, generator=gen, device=bias.device)
         lo = torch.tensor([-60.0, -60.0, -20.0], device=bias.device)
         hi = torch.tensor([60.0, 60.0, 80.0], device=bias.device)
-        bias.copy_((lo + u * (hi - lo)).reshape(-1))
-    _, _, (feat_f, feat_b) = hm_net._estimator_features(img)
-    peaks = hm_net._heatmaps_from_feat(feat_f, feat_b).amax(dim=(-2, -1))
-    shift = 0.5 - float(peaks.median())
-    for head in (m for n, m in hm_net.named_children()
-                 if n.startswith("conv_heatmap_head_")):
-        head.Conv_4.bias.add_(shift)
+        pose = lo + u * (hi - lo)
+        if lifter.cfg.norm_mlp_pred:
+            box_lo, box_hi = (torch.tensor(b, device=bias.device) for b in
+                              (lifter.cfg.coor_norm_min, lifter.cfg.coor_norm_max))
+            pose = 2.0 * (pose - box_lo) / (box_hi - box_lo) - 1.0
+        bias.copy_(pose.reshape(-1))
+    _, _, halves = hm_net._estimator_features(img)
+    if hm_net.use_1by1_conv:
+        peaks = hm_net._estimator_heatmaps(halves[:len(hm_net._estimators())],
+                                           img.shape[0])
+        heads = [est.conv_heatmap for est, _ in hm_net._estimators()]
+    else:
+        peaks = hm_net._heatmaps_from_feat(*halves)
+        heads = [m.Conv_4 for n, m in hm_net.named_children()
+                 if n.startswith("conv_heatmap_head_")]
+    shift = 0.5 - float(peaks.amax(dim=(-2, -1)).median())
+    for head in heads:
+        head.bias.add_(shift)
 
 
 def phase_end_to_end(card, lazy: bool = True):
     """The flagship forward through the kernels vs through the plain
-    versions; in the reference order also vs the lazy order on the same
-    weights."""
+    versions (:func:`check_forward`); in the reference order also vs the
+    lazy order on the same weights."""
     from egorear_tpu_torch import entry
-    from egorear_tpu_torch.ops.heatmap import argmax_2d
 
-    tag = order_tag(3, lazy)
     model, rig = entry.build((256, 256), dtype=torch.float32, seed=0,
                              lazy_deform=lazy)
+    img, got_p3d, got_hm = check_forward(card, model, rig, lazy, "flagship",
+                                         order_tag(3, lazy))
+    if lazy:
+        return
+    # Two independent kernels computing one function by different algebra.
+    other, _ = entry.build((256, 256), dtype=torch.float32, seed=0)
+    other.load_state_dict(model.state_dict(), strict=True)
+    with torch.inference_mode():
+        lazy_p3d, lazy_hm = other(img, rig)
+    hm_errs = [float((g - w).abs().max()) for g, w in zip(got_hm, lazy_hm)]
+    p3d_errs = [float((g - w).abs().max()) for g, w in zip(got_p3d, lazy_p3d)]
+    print(f"{order_tag(3, lazy)} flagship 256px B={E2E_BATCH} fp32 reference "
+          f"order vs lazy order, both through their kernels, same weights: "
+          f"heatmap stages max-abs {hm_errs} (tol {ORDERS_HM_TOL:g}), preds_3d "
+          f"stages max-abs cm {p3d_errs} (tol {ORDERS_P3D_TOL:g}) | {card}",
+          flush=True)
+    if not (max(hm_errs) <= ORDERS_HM_TOL and max(p3d_errs) <= ORDERS_P3D_TOL):
+        raise AssertionError("the reference order disagrees with the lazy order")
+
+
+def check_forward(card, model, rig, lazy: bool, name: str, tag: str):
+    """The eval-mode fp32 b2 forward of ``model`` (moved off its init by
+    :func:`perturb_`) through the kernels vs through the plain versions, the
+    launches exact; returns the images and the kernel run's outputs."""
+    from egorear_tpu_torch.ops.heatmap import argmax_2d
+
+    size = model.cfg.image_size[0]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    img = torch.randn(E2E_BATCH, 4, 3, 256, 256, generator=gen, device="cuda")
+    img = torch.randn(E2E_BATCH, 4, 3, size, size, generator=gen, device="cuda")
     perturb_(model, img, gen)
     attns = deform_attns(model)
     with torch.inference_mode():
@@ -963,9 +1062,9 @@ def phase_end_to_end(card, lazy: bool = True):
         want_p3d, want_hm = model(img, rig)
         for m in attns:
             m.impl = "kernel"
-    if launched != expected_launches(lazy, 1, 0):
-        raise AssertionError(f"kernel run launched {launched}, expected "
-                             f"{expected_launches(lazy, 1, 0)}")
+    want = expected_launches(lazy, 1, 0, model.cfg)
+    if launched != want:
+        raise AssertionError(f"kernel run launched {launched}, expected {want}")
     valid_2d = float(argmax_2d(want_hm[0], 0.5, normalize=True)[2].float().mean())
     valid_3d = float(rig.project(want_p3d[0])[1].float().mean())
     if not (valid_2d > 0 and valid_3d > 0):
@@ -973,60 +1072,56 @@ def phase_end_to_end(card, lazy: bool = True):
                              f"the check would not see the kernel")
     hm_errs = [float((g - w).abs().max()) for g, w in zip(got_hm, want_hm)]
     p3d_errs = [float((g - w).abs().max()) for g, w in zip(got_p3d, want_p3d)]
-    print(f"{tag} flagship 256px B={E2E_BATCH} fp32 "
+    fwd = kernel_names(lazy)[0]
+    print(f"{tag} {name} {size}px B={E2E_BATCH} fp32 "
           f"{'lazy' if lazy else 'reference'} order kernel vs plain: heatmap "
           f"stages max-abs {hm_errs} (tol {E2E_HM_TOL:g}), preds_3d stages "
           f"max-abs cm {p3d_errs} (tol {E2E_P3D_TOL:g}); valid anchors 2D "
-          f"{valid_2d:.3f} 3D {valid_3d:.3f} | {card}", flush=True)
+          f"{valid_2d:.3f} 3D {valid_3d:.3f}; {fwd} launches {launched[fwd]} "
+          f"| {card}", flush=True)
     if len(got_hm) != 2 or len(got_p3d) != 4:
         raise AssertionError("unexpected number of output stages")
     if not (max(hm_errs) <= E2E_HM_TOL and max(p3d_errs) <= E2E_P3D_TOL):
         raise AssertionError("end-to-end kernel run disagrees with the plain run")
-    if lazy:
-        return
-    # Two independent kernels computing one function by different algebra.
-    other, _ = entry.build((256, 256), dtype=torch.float32, seed=0)
-    other.load_state_dict(model.state_dict(), strict=True)
-    with torch.inference_mode():
-        lazy_p3d, lazy_hm = other(img, rig)
-    hm_errs = [float((g - w).abs().max()) for g, w in zip(got_hm, lazy_hm)]
-    p3d_errs = [float((g - w).abs().max()) for g, w in zip(got_p3d, lazy_p3d)]
-    print(f"{tag} flagship 256px B={E2E_BATCH} fp32 reference order vs lazy "
-          f"order, both through their kernels, same weights: heatmap stages "
-          f"max-abs {hm_errs} (tol {ORDERS_HM_TOL:g}), preds_3d stages max-abs "
-          f"cm {p3d_errs} (tol {ORDERS_P3D_TOL:g}) | {card}", flush=True)
-    if not (max(hm_errs) <= ORDERS_HM_TOL and max(p3d_errs) <= ORDERS_P3D_TOL):
-        raise AssertionError("the reference order disagrees with the lazy order")
+    return img, got_p3d, got_hm
 
 
 def phase_serve(card, profile: str | None, lazy: bool = True):
-    """Serve the flagship as users would; returns the kernel launch counts
-    of the main path."""
+    """Serve the flagship as users would (:func:`serve`); returns the
+    kernel launch counts of the main path."""
     from egorear_tpu_torch import entry
 
-    tag = order_tag(4, lazy)
     model, rig = entry.build((256, 256), dtype=torch.bfloat16, bn_folded=True,
                              seed=0, lazy_deform=lazy)
+    return serve(card, model, rig, lazy, "flagship", order_tag(4, lazy),
+                 profile=profile)
+
+
+def serve(card, model, rig, lazy: bool, name: str, tag: str,
+          forwards: tuple = (SERVE_WARMUP, SERVE_TIMED), profile=None) -> dict:
+    """``forwards`` = (warm-up, timed) b16 forwards of the bf16 BN-folded
+    ``model`` at 256 px, timed, their launches exact and their outputs
+    finite; returns the launch counts."""
+    warmup, timed = forwards
     gen = torch.Generator(device="cuda").manual_seed(2)
     img = torch.randn(SERVE_BATCH, 4, 3, 256, 256, generator=gen,
                       device="cuda").to(torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         reset_launches()
-        for _ in range(SERVE_WARMUP):
+        for _ in range(warmup):
             model(img, rig)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(SERVE_TIMED):
+        for _ in range(timed):
             preds_3d, heatmaps = model(img, rig)
         torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / SERVE_TIMED
+        dt = (time.perf_counter() - t0) / timed
         launches = read_launches()
-    forwards = SERVE_WARMUP + SERVE_TIMED
-    want = expected_launches(lazy, forwards, 0)
+    n = warmup + timed
+    want = expected_launches(lazy, n, 0, model.cfg)
     if launches != want:
-        raise AssertionError(f"{forwards} forwards launched {launches}, "
-                             f"expected {want}")
+        raise AssertionError(f"{n} forwards launched {launches}, expected {want}")
     B, J = SERVE_BATCH, 16
     if [tuple(p.shape) for p in preds_3d] != [(B, J, 3)] * 4:
         raise AssertionError(f"preds_3d shapes {[p.shape for p in preds_3d]}")
@@ -1035,15 +1130,16 @@ def phase_serve(card, profile: str | None, lazy: bool = True):
     if not all(bool(torch.isfinite(x).all()) for x in (*preds_3d, *heatmaps)):
         raise AssertionError("non-finite serving output")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    name = "lazy_deform_sample" if lazy else "deform_sample"
-    print(f"{tag} serve flagship 256px bf16 BN-folded "
+    fwd = kernel_names(lazy)[0]
+    print(f"{tag} serve {name} 256px bf16 BN-folded "
           f"{'lazy' if lazy else 'reference'} order B={B}: "
-          f"{dt * 1e3:.3f} ms/forward (host clock, {SERVE_TIMED} forwards "
-          f"after {SERVE_WARMUP} warm-up), {B / dt:.1f} samples/s "
-          f"({4 * B / dt:.1f} images/s), peak {peak_gib:.2f} GiB; {name} "
-          f"launches {launches[name]} = {forwards} x {launches_per_forward()} "
-          f"(4 refiners looped + 3 lifting layers), other kernels 0 | {card}",
-          flush=True)
+          f"{dt * 1e3:.3f} ms/forward (host clock, {timed} forwards "
+          f"after {warmup} warm-up), {B / dt:.1f} samples/s "
+          f"({4 * B / dt:.1f} images/s), peak {peak_gib:.2f} GiB; {fwd} "
+          f"launches {launches[fwd]} = {n} x "
+          f"{launches_per_forward(cfg=model.cfg)} ({launches_mvfex(cfg=model.cfg)}"
+          f" refiner + {launches_pose3d(model.cfg)} lifting layer launches), "
+          f"other kernels 0 | {card}", flush=True)
     if profile:
         profile_serving(model, rig, img, card, profile, lazy)
     return launches
@@ -1146,40 +1242,54 @@ def _adam_param_check(name, got, want, grad, grad_tol, lr, eps=1e-8):
                              f"{float(diff.flatten()[i]):.3e} > bound "
                              f"{float(bound.flatten()[i]):.3e} (gradient "
                              f"{float(grad.flatten()[i]):.3e})")
+    # masked_fill, not boolean indexing: the 512-channel head's mlp_pred_0
+    # holds 1.07 G elements, whose index lists would take 17 GB.
     determined = grad.abs() > 10 * grad_tol
-    tight = float(diff[determined].max()) if bool(determined.any()) else 0.0
-    loose = float(diff[~determined].max()) if bool((~determined).any()) else 0.0
+    tight = float(diff.masked_fill(~determined, 0).max())
+    loose = float(diff.masked_fill(determined, 0).max())
     return tight, loose
 
 
 @contextlib.contextmanager
 def pinned_relus(masks: list, flips: list | None = None):
     """With ``flips`` None, records the mask (input > 0) of every ``F.relu``
-    call inside, in call order, into ``masks``. Otherwise the i-th call
-    takes ``masks[i]``: where its input's sign agrees with the mask it is
-    ``F.relu``, and where it does not it gives ``torch.where(mask, x, 0)``,
-    whose gradient follows the mask, and appends (inputs that disagree,
-    their largest |input| over the call's largest) to ``flips``.
+    call inside and the argmax indices of every ``F.max_pool2d`` call, in
+    call order, into ``masks``. Otherwise the i-th call takes ``masks[i]``:
+    a ReLU whose input's sign agrees with the mask is ``F.relu``, and where
+    it does not it gives ``torch.where(mask, x, 0)``, whose gradient follows
+    the mask; a max-pool whose argmax agrees is ``F.max_pool2d``, and where
+    it does not it gives the input at the recorded indices, where its
+    gradient then goes. Each disagreeing call appends (elements that
+    disagree, their largest distance from the kink, |input| or max minus
+    the recorded element, over the call's largest |input|) to ``flips``.
 
-    ReLU's gradient jumps at 0, so an input that two runs round to either
-    side of it changes a gradient by a whole path, however small the input.
-    Pinning the kernel step's ReLUs to the plain step's side compares both
-    gradients on the same linear piece, where they are continuous in the
-    kernel's rounding; the caller requires every input that changed sides
-    to lie within FWD_TOL[fp32] of the call's scale of zero."""
+    ReLU's gradient jumps at 0 and a max-pool's at a tie, so an input that
+    two runs round to either side of one changes a gradient by a whole
+    path, however small the difference. Pinning the kernel step's ReLUs and
+    max-pools to the plain step's side compares both gradients on the same
+    piece, where they are continuous in the kernel's rounding; the caller
+    requires every input that changed sides to lie within FWD_TOL[fp32] of
+    the call's scale of the kink."""
     import torch.nn.functional as F
 
-    relu, calls = F.relu, [0]
+    relu, pool, calls = F.relu, F.max_pool2d, [0]
+
+    def recorded(kind, shape):
+        if calls[0] >= len(masks):
+            raise AssertionError(f"call {calls[0]}: more ReLU and max-pool "
+                                 f"calls than the recorded step made")
+        got_kind, m = masks[calls[0]]
+        calls[0] += 1
+        if got_kind != kind or m.shape != shape:
+            raise AssertionError(f"call {calls[0] - 1}: {kind} {tuple(shape)}, the "
+                                 f"recorded step's {got_kind} {tuple(m.shape)}")
+        return m
 
     def relu_pinned(x, inplace=False):
         if flips is None:
-            masks.append(x.detach() > 0)
+            masks.append(("relu", x.detach() > 0))
             return relu(x, inplace)
-        mask = masks[calls[0]]
-        calls[0] += 1
-        if mask.shape != x.shape:
-            raise AssertionError(f"ReLU call {calls[0] - 1}: shape {tuple(x.shape)}"
-                                 f", the recorded step's {tuple(mask.shape)}")
+        mask = recorded("relu", x.shape)
         differ = (x.detach() > 0) != mask
         if not bool(differ.any()):
             return relu(x, inplace)
@@ -1188,21 +1298,36 @@ def pinned_relus(masks: list, flips: list | None = None):
                        float(x.detach()[differ].abs().max()) / max(scale, 1e-30)))
         return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    F.relu = relu_pinned
+    def pool_pinned(x, *args, return_indices=False, **kwargs):
+        out, idx = pool(x, *args, return_indices=True, **kwargs)
+        if flips is None:
+            masks.append(("max_pool", idx))
+        else:
+            want = recorded("max_pool", idx.shape)
+            differ = idx != want
+            if bool(differ.any()):
+                picked = x.flatten(2).gather(2, want.flatten(2)).view_as(out)
+                scale = float(x.detach().abs().max())
+                flips.append((int(differ.sum()), float(
+                    (out - picked).detach()[differ].abs().max()) / max(scale, 1e-30)))
+                out, idx = picked, want
+        return (out, idx) if return_indices else out
+
+    F.relu, F.max_pool2d = relu_pinned, pool_pinned
     try:
         yield
     finally:
-        F.relu = relu
+        F.relu, F.max_pool2d = relu, pool
     if flips is not None and calls[0] != len(masks):
-        raise AssertionError(f"{calls[0]} ReLU calls, the recorded step made "
-                             f"{len(masks)}")
+        raise AssertionError(f"{calls[0]} ReLU and max-pool calls, the "
+                             f"recorded step made {len(masks)}")
 
 
 def compare_kernel_step(model, trainer, batch, start, want_launches):
     """One fp32 train step through the plain versions and one through the
     kernels, from the state dict ``start`` on ``batch``, the kernel step's
-    ReLUs pinned to the plain step's masks (:func:`pinned_relus`); checks
-    the kernel step's launches against ``want_launches``, every leaf
+    ReLUs and max-pools pinned to the plain step's (:func:`pinned_relus`);
+    checks the kernel step's launches against ``want_launches``, every leaf
     gradient against TRAIN_GRAD_TOL of its scale (a leaf below the rounding
     floor against the floor), the parameters against AdamW's bound and the
     BN running stats against TRAIN_STAT_TOL. Returns both runs and the
@@ -1291,13 +1416,13 @@ def perturbed_start(task, batch, gen):
     """The task's model moved off its init (:func:`perturb_train_`): the
     state dict that compared steps start from and the model's no-grad
     forward on the batch."""
-    import copy
-
     model = task.model
     perturb_train_(model, batch, gen)
-    start = copy.deepcopy(model.state_dict())
-    with torch.no_grad():
-        out = task.forward(batch["img"])
+    start = {k: v.to("cpu", copy=True)  # on the host
+             for k, v in model.state_dict().items()}
+    with torch.no_grad():  # train mode: any dropout draws from a seeded stream
+        out = task.forward(batch["img"], generator=torch.Generator(
+            device=batch["img"].device).manual_seed(0))
     model.load_state_dict(start)
     return start, out
 
@@ -1322,7 +1447,7 @@ def kernel_step_text(r: dict, lazy: bool) -> str:
             f"{r['worst_tight']:.3e} where the gradient is determined, "
             f"{r['worst_loose']:.3e} elsewhere (Adam bound 2 lr = "
             f"{2 * pl['lr']:.1e}); BN running stats {r['stat_err']:.3e} (tol "
-            f"{TRAIN_STAT_TOL:g}); ReLU inputs pinned across the kink "
+            f"{TRAIN_STAT_TOL:g}); ReLU and max-pool inputs pinned across the kink "
             f"{sum(f[0] for f in r['flips'])} in {len(r['flips'])} of "
             f"{len(r['masks'])} calls (largest {r['kink']:.3e} of its call's "
             f"scale, tol {FWD_TOL[torch.float32]:g}); launches (fwd, bwd) "
@@ -1330,26 +1455,47 @@ def kernel_step_text(r: dict, lazy: bool) -> str:
 
 
 def phase_train_check(card, lazy: bool = True):
+    """The flagship's kernel-vs-plain train step (:func:`check_train_step`)."""
+    from egorear_tpu_torch import entry
+
+    task, trainer = entry.build_train(
+        (TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE, "32", seed=0, steps_per_epoch=1,
+        warmup_iters=1, lazy_deform=lazy, imagenet=False)
+    check_train_step(card, task, trainer, lazy, "flagship", order_tag(5, lazy))
+
+
+def check_train_step(card, task, trainer, lazy: bool, name: str, tag: str,
+                     init: dict | None = None, dropout: float = 0.0):
     """One fp32 train step through the plain versions vs one through the
     kernels, from the same state on the same batch, the kernel step's ReLUs
-    pinned to the plain step's masks (:func:`pinned_relus`)."""
-    from egorear_tpu_torch import entry
+    pinned to the plain step's masks (:func:`pinned_relus`), from the
+    model's state ``init`` (by default its present one; on the host). Any
+    dropout, at rate ``dropout``, draws the same masks in both steps: the
+    trainer seeds its generator from the step, which each starts at 0."""
     from egorear_tpu_torch.ops.heatmap import argmax_2d
 
-    task, trainer = entry.build_train((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE, "32",
-                                      seed=0, steps_per_epoch=1, warmup_iters=1,
-                                      lazy_deform=lazy, imagenet=False)
-    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(4)
-    batch = train_batch(TRAIN_BATCH, TRAIN_SIZE, gen)
-    start, (preds, hms) = perturbed_start(task, batch, gen)
-    anchors = partly_valid({
-        "2D": float(argmax_2d(hms[0], 0.5, normalize=True)[2].float().mean()),
-        "3D": float(task.rig.project(preds[0])[1].float().mean())})
+    # The first seed from 4 (the flagship's) whose perturbed state has
+    # partly valid anchors, so that the step crosses both sampling paths
+    # (the state to retry from kept on the host).
+    if init is None:
+        init = {k: v.to("cpu", copy=True) for k, v in task.model.state_dict().items()}
+    for seed in range(4, 4 + ANCHOR_SEEDS):
+        task.model.load_state_dict(init)
+        gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(seed)
+        batch = train_batch(TRAIN_BATCH, TRAIN_SIZE, gen)
+        start, (preds, hms) = perturbed_start(task, batch, gen)
+        shares = {
+            "2D": float(argmax_2d(hms[0], 0.5, normalize=True)[2].float().mean()),
+            "3D": float(task.rig.project(preds[0])[1].float().mean())}
+        if all(0 < v < 1 for v in shares.values()):
+            break
+    anchors = partly_valid(shares) + (f" (seed {seed})" if seed != 4 else "")
     r = compare_kernel_step(task.model, trainer, batch, start,
-                            expected_launches(lazy, 1, 1))
-    print(f"{order_tag(5, lazy)} flagship {TRAIN_SIZE}px B={TRAIN_BATCH} fp32 "
-          f"{'lazy' if lazy else 'reference'} order train step kernel vs plain: "
-          f"{kernel_step_text(r, lazy)}; valid anchors {anchors} | {card}",
+                            expected_launches(lazy, 1, 1, task.cfg))
+    print(f"{tag} {name} {TRAIN_SIZE}px B={TRAIN_BATCH} fp32 "
+          f"{'lazy' if lazy else 'reference'} order"
+          f"{f', dropout {dropout:g},' if dropout else ''} train step kernel vs "
+          f"plain: {kernel_step_text(r, lazy)}; valid anchors {anchors} | {card}",
           flush=True)
 
 
@@ -1675,7 +1821,8 @@ _EGOREAR_REFINER = [
     (r"fc_bfb\.", "fc_bfb.", False),
     (r"fc_query\.", "fc_query.0.", False),
     (r"joint_query_embed$", "joint_query_embed.weight", False),
-    (r"frame_feat_multi_view_pos_embed$", "frame_feat_multi_view_pos_embed", False),
+    (r"(query_pos_embed|frame_feat_multi_view_pos_embed)$", r"\1", False),
+    (r"conv_heatmap\.", "conv_heatmap.", True),
     (r"frame_feat_multi_view_proj\.", "frame_feat_multi_view_proj.", True),
     (r"ff_proj_0\.", "frame_feat_proj_layers.0.", True),
     (r"ff_proj_1\.", "frame_feat_proj_layers.2.", False),
@@ -1696,6 +1843,12 @@ _EGOREAR_POSE3D = [
     (r"query_gen_(\d)\.", lambda m: f"query_gen_mlp.{2 * int(m[1])}.", False),
     (r"conv_ff_(\d)\.", lambda m: f"conv_frame_feat.{(0, 2, 5, 7)[int(m[1])]}.", False),
     (r"mlp_pred_(\d+)\.", r"mlp_pred.\1.0.", False),
+    # the heatmap proposal's per-view convs (Sequential indices 0, 3); the
+    # reference names the back views' conv_frame_feat_*
+    (r"conv_heatmap_view(\d)_(\d)\.", lambda m: (
+        ("conv_heatmap_front_left", "conv_heatmap_front_right",
+         "conv_frame_feat_back_left", "conv_frame_feat_back_right")[int(m[1])]
+        + f".{(0, 3)[int(m[2])]}."), False),
     (r"reg_mlp_(\d+)_(\d+)\.", lambda m: f"reg_mlp.{m[1]}.{2 * int(m[2])}.", False),
 ]
 EGOREAR_REFINERS = ("heatmap_refiner_front_left", "heatmap_refiner_front_right",
@@ -1863,7 +2016,8 @@ def stage2_launches(steps: int) -> dict:
 
 def phase_stage2_check(card):
     """One fp32 stage-2 step (256 px, b2) through the kernels vs one through
-    the plain versions from the same state, ReLUs pinned as in phase 5."""
+    the plain versions from the same state, ReLUs and max-pools pinned as
+    in phase 5."""
     from egorear_tpu_torch import entry
     from egorear_tpu_torch.ops.heatmap import argmax_2d
 
@@ -2613,6 +2767,153 @@ def phase_device_preprocess(card, workdir: str, cli: dict) -> dict:
     return total
 
 
+# Phase 15: the model branches that no shipped yaml sets, each as its
+# overrides of the flagship config's keys (a dotted path each). The JAX
+# package builds all of them; ``norm_mlp_pred`` needs a box to unnormalise
+# into, here one of 2 m around the device (x, y) and from -0.5 to 1.5 m
+# along its axis (z).
+BRANCHES = {
+    "1by1": {"heatmap_mvf_cfg.mvf_cfg.use_1by1_conv": True},
+    "jqa_mv": {"heatmap_mvf_cfg.mvf_cfg.joint_query_adaptation": False,
+               "heatmap_mvf_cfg.mvf_cfg.joint_query_adaptation_multi_view": True},
+    "query_only": {"heatmap_mvf_cfg.mvf_cfg.joint_query_adaptation": False,
+                   "heatmap_mvf_cfg.mvf_cfg.joint_query_only": True},
+    "hm_embed": {"heatmap_mvf_cfg.mvf_cfg.joint_query_adaptation": False},
+    "normal_mvf": {
+        "heatmap_mvf_cfg.mvf_cfg.mvf_transformer_cfg.use_normal_cross_attn": True},
+    "normal_p3d": {"pose3d_cfg.transformer_cfg.use_normal_cross_attn": True},
+    "no_pred_init": {"heatmap_mvf_cfg.use_pred_heatmap_init": False},
+    "avgpool": {"pose3d_cfg.use_mlp_avgpool": True},
+    "mlp_heatmap": {"pose3d_cfg.use_mlp_heatmap": True},
+    "norm_mlp_pred": {"pose3d_cfg.norm_mlp_pred": True,
+                      "pose3d_cfg.coor_norm_min": [-100.0, -100.0, -50.0],
+                      "pose3d_cfg.coor_norm_max": [100.0, 100.0, 150.0]},
+    "head512": {"heatmap_mvf_cfg.encoder_cfg.neck_cfg.out_channels": 512,
+                "heatmap_mvf_cfg.mvf_cfg.input_dims": 512,
+                "pose3d_cfg.input_dims": 512},
+}
+# Every dropout of a branch's train step at this rate (the three keys).
+BRANCH_DROPOUT = 0.1
+DROPOUT_KEYS = ("heatmap_mvf_cfg.mvf_cfg.mvf_transformer_cfg.ffn_cfg.ffn_drop",
+                "pose3d_cfg.transformer_cfg.ffn_cfg.ffn_drop",
+                "pose3d_cfg.mlp_dropout")
+BRANCH_SERVE = (2, 5)  # warm-up and timed b16 bf16 forwards per branch
+# The lazy sampling at the 512-channel head's shapes: 512 raw channels.
+SHAPES_512 = {name: dict(shape, Cin=512) for name, shape in SHAPES.items()}
+# The CLI runs of the branches on phase 12's tree: yaml -> its model_cfg
+# keys to override (the stage-2 yaml's model_cfg is the flagship's
+# ``heatmap_mvf_cfg``).
+BRANCH_CLI = {
+    "ego4view_syn_heatmap_mvfex-n1_jqa": {
+        "mvf_cfg.use_1by1_conv": True,
+        "mvf_cfg.mvf_transformer_cfg.ffn_cfg.ffn_drop": 0.1},
+    "ego4view_syn_pose3d": {"pose3d_cfg.use_mlp_heatmap": True,
+                            "heatmap_mvf_cfg.use_pred_heatmap_init": False},
+}
+
+
+def set_keys(cfg: dict, overrides: dict) -> dict:
+    """``cfg`` with each dotted key of ``overrides`` set, in place."""
+    for path, value in overrides.items():
+        node = cfg
+        *parents, leaf = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = copy.deepcopy(value)
+    return cfg
+
+
+def branch_overrides(name: str, dropout: float = 0.0) -> dict:
+    """The branch ``name`` with every dropout at ``dropout``, as the
+    nested overrides that ``entry.build`` and ``entry.build_train`` take."""
+    return set_keys({}, {**BRANCHES[name], **dict.fromkeys(DROPOUT_KEYS, dropout)})
+
+
+def branch_orders(name: str) -> tuple:
+    """The computation orders phase 15 runs a branch in: both, but the
+    lazy one alone where the branch takes a stage off the sampling kernels
+    (dense cross-attention), whose other stage phases 3b-6b cover."""
+    dense = any(k.endswith("use_normal_cross_attn") for k in BRANCHES[name])
+    return (True,) if dense else (True, False)
+
+
+def branch_run(card, name: str, lazy: bool) -> dict:
+    """One branch in one order on one seeded build: its eval-mode forward
+    (:func:`check_forward`) and its train step with every dropout at
+    :data:`BRANCH_DROPOUT` (:func:`check_train_step`), kernels vs plain;
+    in the lazy order also the b16 bf16 serving forwards of the same weights
+    BN-folded (:func:`serve`). Returns the serving run's launch counts (none
+    in the reference order)."""
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.models.backbone import fold_batchnorm
+    from egorear_tpu_torch.models.configs import EgoRearNetCfg
+    from egorear_tpu_torch.models.pose3d import EgoRearNet
+
+    tag = f"[15b{'' if lazy else ' reference'}]"
+    task, trainer = entry.build_train(
+        (TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE, "32", seed=0, steps_per_epoch=1,
+        warmup_iters=1, lazy_deform=lazy, imagenet=False,
+        overrides=branch_overrides(name, BRANCH_DROPOUT))
+    init = {k: v.to("cpu", copy=True) for k, v in task.model.state_dict().items()}
+    task.model.eval()
+    check_forward(card, task.model, task.rig, lazy, name, tag)
+    check_train_step(card, task, trainer, lazy, name, tag, init, BRANCH_DROPOUT)
+    if not lazy:
+        return dict.fromkeys(KERNELS, 0)
+    rig = task.rig
+    del task, trainer
+    cfg = set_keys(entry.flagship_cfg_dict((TRAIN_SIZE, TRAIN_SIZE), bn_folded=True),
+                   BRANCHES[name])
+    with torch.device(TRAIN_DEVICE):  # the module's own init on the card
+        model = EgoRearNet(EgoRearNetCfg.from_dict(cfg))
+    model.load_state_dict(fold_batchnorm(init), strict=True)
+    model = model.to(device=TRAIN_DEVICE, dtype=torch.bfloat16).eval()
+    return serve(card, model, rig, True, name, tag, BRANCH_SERVE)
+
+
+def phase_branches(card, model_locs, workdir: str, cli: dict) -> dict:
+    """Phase 15: the lazy kernels at the 512-channel head's shapes (fp32 and
+    bf16, uniform and model locations) against their plain versions; each
+    branch of :data:`BRANCHES` at full width in each of its orders
+    (:func:`branch_run`); the CLI ``fit`` of stage 2 with ``use_1by1_conv``
+    and dropout and of stage 3 with the heatmap proposal from the refined
+    features, on phase 12's tree. Every run's launches exact. Returns the
+    launch counts of the serving and CLI runs."""
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.models.configs import EgoRearNetCfg
+
+    t0 = time.perf_counter()
+    phase_kernels(card, model_locs, SHAPES_512, "[15a]")
+    phase_backward_kernels(card, model_locs, SHAPES_512, "[15a]")
+    total = dict.fromkeys(KERNELS, 0)
+    for name in BRANCHES:
+        t = time.perf_counter()
+        for lazy in branch_orders(name):
+            for k, v in branch_run(card, name, lazy).items():
+                total[k] += v
+        print(f"[15b] {name} {time.perf_counter() - t:.1f} s | {card}", flush=True)
+    t1 = time.perf_counter()
+    for name, keys in BRANCH_CLI.items():
+        stage2 = name.endswith("jqa")
+        cfg = EgoRearNetCfg.from_dict(set_keys(entry.flagship_cfg_dict(), {
+            ("heatmap_mvf_cfg." if stage2 else "") + k: v for k, v in keys.items()}))
+        # Each step's backward reaches every layer its forward launched in.
+        per = launches_mvfex(cfg=cfg) if stage2 else launches_per_forward(cfg=cfg)
+        extra = [a for k, v in keys.items()
+                 for a in (f"--model.model_cfg.{k}", json.dumps(v))]
+        graft = cli["grafts"] if stage2 else [
+            "--model.heatmap_estimator_mvf_pretrained", cli["stage2"]]
+        _, launched, _, _ = cli_fit(card, name, cli["root"],
+                                    os.path.join(workdir, "branches"),
+                                    CLI_TRAIN_FRAMES, per, graft + extra, None,
+                                    tag=f"[15c] {' '.join(extra[::2])}:")
+        for k, v in launched.items():
+            total[k] += v
+    print(f"[15] phase 15 {time.perf_counter() - t0:.1f} s (CLI "
+          f"{time.perf_counter() - t1:.1f} s) | {card}", flush=True)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -2680,6 +2981,8 @@ def main() -> int:
             cli = timed("12", phase_cli, card, workdir, rates)
             rigs_launched = timed("13", phase_cli_rigs, card, workdir, cli)
             dp_launched = timed("14", phase_device_preprocess, card, workdir, cli)
+            branch_launched = timed("15", phase_branches, card, model_locs,
+                                    workdir, cli)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[7] main-path launches: serving forward lazy_deform_sample "
@@ -2702,7 +3005,9 @@ def main() -> int:
           f"cache_in_memory CLI lazy_deform_sample "
           f"{dp_launched['cache_in_memory']['lazy_deform_sample']}, "
           f"lazy_deform_sample_bwd {dp_launched['cache_in_memory']['lazy_deform_sample_bwd']}"
-          f" | {card}", flush=True)
+          f"; branches (serving and CLI) lazy_deform_sample "
+          f"{branch_launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
+          f"{branch_launched['lazy_deform_sample_bwd']} | {card}", flush=True)
     # Each main path's counts, zeroed before and read after its own run;
     # ``launches`` is their sum.
     by_path = {"serving_lazy": serve[True], "serving_reference": serve[False],
@@ -2710,7 +3015,8 @@ def main() -> int:
                "stage2_training": stage2_launched, "cli_chain": cli["launches"],
                "cli_v2_and_real_world": rigs_launched,
                "cli_device_preprocess": dp_launched["device_preprocess"],
-               "cli_cache_in_memory": dp_launched["cache_in_memory"]}
+               "cli_cache_in_memory": dp_launched["cache_in_memory"],
+               "branches": branch_launched}
     print("[7] seconds by phase: "
           + " ".join(f"{k}={v:.1f}" for k, v in seconds.items())
           + f"; total {time.perf_counter() - t0:.1f} | {card}", flush=True)

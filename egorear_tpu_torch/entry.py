@@ -31,6 +31,7 @@ yaml asks; ``imagenet=False`` keeps them random (from ``seed``).
 from __future__ import annotations
 
 import copy
+from typing import Optional
 
 import torch
 
@@ -94,6 +95,17 @@ def flagship_cfg_dict(image_size=(256, 256), bn_folded: bool = False,
         d["heatmap_mvf_cfg"]["mvf_cfg"]["lazy_deform"] = False
         d["pose3d_cfg"]["lazy_deform"] = False
     return d
+
+
+def _merged(cfg: dict, overrides: dict) -> dict:
+    """``cfg`` with ``overrides`` (a dict of the same nesting) laid over it,
+    in place."""
+    for key, value in overrides.items():
+        if isinstance(value, dict) and isinstance(cfg.get(key), dict):
+            _merged(cfg[key], value)
+        else:
+            cfg[key] = copy.deepcopy(value)
+    return cfg
 
 
 def flagship_cfg(image_size=(256, 256), bn_folded: bool = False,
@@ -190,12 +202,15 @@ def _trainer(task, precision, defaults, optim, steps_per_epoch, pretrained):
 def build_train(image_size=(256, 256), device=None,
                 precision: str = "bf16-mixed", seed: int = 0, *,
                 steps_per_epoch: int, lazy_deform: bool = True,
-                imagenet: bool = True, pretrained=None, **optim):
+                imagenet: bool = True, pretrained=None,
+                overrides: Optional[dict] = None, **optim):
     """The flagship stage-3 training set-up: ``(Pose3DTask, Trainer)``.
 
     Random weights from ``seed``, on ``cuda`` unless ``device`` says
     otherwise (without CUDA this raises); ``lazy_deform=False`` trains the
-    reference computation order. The backbones start from the ImageNet
+    reference computation order; ``overrides`` (nested as the config dict)
+    is laid over the config, e.g. ``{"pose3d_cfg": {"use_mlp_avgpool":
+    True}}`` for another model branch. The backbones start from the ImageNet
     ResNet-18, as ``configs/ego4view_syn_pose3d.yaml`` asks, unless
     ``imagenet=False``;
     ``pretrained`` maps graft keys (``train/checkpoint.PRETRAINED_GRAFTS``,
@@ -205,7 +220,8 @@ def build_train(image_size=(256, 256), device=None,
     The trainer's state is initialised.
     """
     device = torch.device("cuda" if device is None else device)
-    cfg = flagship_cfg_dict(image_size, lazy_deform=lazy_deform)
+    cfg = _merged(flagship_cfg_dict(image_size, lazy_deform=lazy_deform),
+                  overrides or {})
     cfg["heatmap_mvf_cfg"]["encoder_cfg"]["resnet_cfg"]["use_imagenet_pretrain"] = imagenet
     task = Pose3DTask(cfg, device=device, seed=seed)
     return task, _trainer(task, precision, FLAGSHIP_OPTIM, optim,

@@ -33,9 +33,9 @@ class HeatmapNet(nn.Module):
     the 1x1 ``conv_heatmap`` head of stage 1.
 
     ``num_heatmap=None`` builds no head: the estimators inside the MVFex
-    cascade run only :meth:`backbone_features` (their heatmaps come from the
-    cascade's conv-stack heads), and the JAX package never creates the head's
-    parameters there.
+    cascade run only :meth:`backbone_features` when their heatmaps come from
+    the cascade's conv-stack heads, and the JAX package never creates the
+    head's parameters there; with ``use_1by1_conv`` they keep the head.
     """
 
     def __init__(self, out_stride: int = 4, fpn_channels: int = 128,

@@ -1,6 +1,6 @@
 """Transformer building blocks shared by the MVFex and Pose3D stages (the JAX
-package's ``models/layers.py``): FFN, MultiheadAttention, the deformable
-attention in both computation orders (reference and lazy), the
+package's ``models/layers.py``): dropout, FFN, MultiheadAttention, the
+deformable attention in both computation orders (reference and lazy), the
 align-corners resizes, and the weight init.
 
 Layout: feature maps are NCHW; token sequences are (B, L, C). A flax
@@ -12,9 +12,10 @@ use flax's epsilon, 1e-6 (torch's default is 1e-5).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -50,6 +51,57 @@ def add_modules(parent: nn.Module, **modules: nn.Module) -> None:
         parent.add_module(name, m)
 
 
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout``: in train mode at rate ``p`` > 0 each element is
+    kept where a uniform draw is below ``1 - p`` and scaled by
+    ``1 / (1 - p)``, else zeroed. The draws come from the module's
+    ``generator`` (set by :func:`dropout_generator`), never from the global
+    RNG; in train mode without one this raises. In eval mode, or at rate 0,
+    the identity."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        if not 0.0 <= p <= 1.0:
+            raise ValueError(f"dropout rate {p} is not in [0, 1]")
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None:
+            raise RuntimeError(f"dropout at rate {self.p} in train mode needs a "
+                               f"generator: run the model under "
+                               f"dropout_generator(model, gen)")
+        keep = 1.0 - self.p
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+@contextlib.contextmanager
+def dropout_generator(model: nn.Module,
+                      gen: Optional[torch.Generator]) -> Iterator[None]:
+    """Within the block, every :class:`Dropout` of ``model`` in train mode
+    draws its masks from ``gen`` (a generator on the activations' device),
+    in call order: the V refiners, each layer's FFN and the proposal MLP
+    each draw their own. ``None`` changes nothing."""
+    drops = ([m for m in model.modules() if isinstance(m, Dropout)]
+             if gen is not None else [])
+    saved = [m.generator for m in drops]
+    for m in drops:
+        m.generator = gen
+    try:
+        yield
+    finally:
+        for m, g in zip(drops, saved):
+            m.generator = g
+
+
 class FFN(nn.Module):
     """(num_fcs - 1) x [Linear -> GELU -> Dropout], then Linear -> Dropout
     (no residual inside)."""
@@ -61,7 +113,7 @@ class FFN(nn.Module):
         dims = [embed_dims] + [feedforward_dims] * (num_fcs - 1) + [embed_dims]
         for i in range(num_fcs):
             self.add_module(f"Dense_{i}", nn.Linear(dims[i], dims[i + 1]))
-        self.drop = nn.Dropout(ffn_drop)
+        self.drop = Dropout(ffn_drop)
 
     def forward(self, x):
         for i in range(self.num_fcs - 1):

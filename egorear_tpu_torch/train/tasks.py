@@ -14,7 +14,8 @@ when None; without CUDA that raises). ``forward(img, params)`` and
 ``loss(batch, params)`` run with the model's own parameters or, given
 ``params``, with those in their place (``torch.func.functional_call``; the
 model's buffers, e.g. BN running stats, are used and updated); the model's
-train/eval mode is the caller's.
+train/eval mode is the caller's. Both take a ``generator`` from which
+dropout in train mode draws its masks (the trainer's, seeded per step).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from torch.func import functional_call
 from egorear_tpu_torch.data.preprocess import preprocess_batch_device
 from egorear_tpu_torch.models.configs import EgoRearNetCfg, EncoderCfg, MVFexNetCfg
 from egorear_tpu_torch.models.heatmap_net import HeatmapNet
-from egorear_tpu_torch.models.layers import init_weights
+from egorear_tpu_torch.models.layers import dropout_generator, init_weights
 from egorear_tpu_torch.models.mvfex import HeatmapMVFexNet
 from egorear_tpu_torch.models.pose3d import EgoRearNet
 from egorear_tpu_torch.ops.camera import CameraRig
@@ -157,25 +158,29 @@ class _Task:
 
     def forward(self, img: torch.Tensor,
                 params: Optional[Dict[str, torch.Tensor]] = None,
-                coord_trans_mat: Optional[torch.Tensor] = None):
+                coord_trans_mat: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """The model on ``img``, with its own parameters or ``params``
         (stage 3 on the real-world rig also takes the batch's
-        ``coord_trans_mat``)."""
+        ``coord_trans_mat``); dropout in train mode draws its masks from
+        ``generator``."""
         args = self._args(img, coord_trans_mat)
-        if params is None:
-            return self.model(*args)
-        return functional_call(self.model, params, args)
+        with dropout_generator(self.model, generator):
+            if params is None:
+                return self.model(*args)
+            return functional_call(self.model, params, args)
 
     def _forward_args(self, batch: dict) -> tuple:
         return (batch["img"],)
 
-    def _batch_forward(self, batch: dict, params=None):
+    def _batch_forward(self, batch: dict, params=None, generator=None):
         """``(prepared batch, model outputs)``: every path that reads a
         batch's ``img`` or ``gt_heatmap`` takes it from here, after
         :func:`prepare_batch`."""
         batch = prepare_batch(batch)
         img, *ctm = self._forward_args(batch)
-        return batch, self.forward(img, params, *ctm)
+        ctm = ctm[0] if ctm else None
+        return batch, self.forward(img, params, ctm, generator)
 
     @torch.no_grad()
     def _eval_forward(self, batch: dict):
@@ -203,9 +208,10 @@ class HeatmapTask(_Task):
             seed, ec.use_imagenet_pretrain, device)
         self.w_heatmap = w_heatmap
 
-    def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None
+    def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None,
+             generator: Optional[torch.Generator] = None
              ) -> Tuple[torch.Tensor, Metrics]:
-        batch, pred = self._batch_forward(batch, params)
+        batch, pred = self._batch_forward(batch, params, generator)
         loss = _per_view_mse_sum(pred, batch["gt_heatmap"]) * self.w_heatmap
         return loss, {"heatmap_loss": loss}
 
@@ -242,9 +248,10 @@ class MVFexTask(_Task):
                             self.cfg.encoder.use_imagenet_pretrain, device)
         self.w_heatmap = w_heatmap
 
-    def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None
+    def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None,
+             generator: Optional[torch.Generator] = None
              ) -> Tuple[torch.Tensor, Metrics]:
-        batch, (hms, _) = self._batch_forward(batch, params)
+        batch, (hms, _) = self._batch_forward(batch, params, generator)
         metrics = {}
         total = 0.0
         for i, hm in enumerate(hms):
@@ -326,11 +333,12 @@ class Pose3DTask(_Task):
     def _forward_args(self, batch: dict) -> tuple:
         return batch["img"], batch.get("coord_trans_mat") if self.is_rw else None
 
-    def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None
+    def loss(self, batch: dict, params: Optional[Dict[str, torch.Tensor]] = None,
+             generator: Optional[torch.Generator] = None
              ) -> Tuple[torch.Tensor, Metrics]:
         """``(total, metrics)`` of one batch; the model's train/eval mode is
         the caller's (the trainer's step sets train mode)."""
-        batch, (preds3d, hms) = self._batch_forward(batch, params)
+        batch, (preds3d, hms) = self._batch_forward(batch, params, generator)
         metrics = {}
         total = 0.0
         for i, p in enumerate(preds3d):

@@ -15,7 +15,7 @@ clipping, AdamW with the scheduled lr, ``step += 1``.
     would keep other ops in fp32 than JAX does.
 
 The trainer is generic over the three tasks (``train/tasks.py``): it calls
-``task.loss(batch, params)``, ``task.eval_metrics`` and
+``task.loss(batch, params, generator)``, ``task.eval_metrics`` and
 ``task.predict_outputs``. Its :meth:`~Trainer.state_dict` (model, optimizer,
 step) is what the port's checkpoints hold (``train/checkpoint.py``).
 
@@ -29,8 +29,13 @@ checkpoints at their cadences, resume, a non-finite guard
 (``debug_nans``) and a ``torch.profiler`` trace of the first
 ``profile_steps`` steps.
 
-Not ported: ``remat``, more than one device, and dropout at a non-zero
-rate (all raise).
+Dropout (``ffn_drop``, ``mlp_dropout``) draws its masks in each step from a
+generator on the model's device seeded from ``seed + 1`` and the step count
+(:func:`dropout_seed`, the counterpart of the JAX package's
+``fold_in(PRNGKey(seed + 1), step)``): deterministic, and a resumed run
+continues the same stream. The bits differ from JAX's threefry.
+
+Not ported: ``remat`` and more than one device (both raise).
 """
 
 from __future__ import annotations
@@ -44,7 +49,6 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn as nn
 
 from egorear_tpu_torch.data.loader import DataLoader
 from egorear_tpu_torch.train import checkpoint as ckpt_lib
@@ -58,6 +62,13 @@ from egorear_tpu_torch.utils.logging import get_logger
 logger = get_logger("trainer")
 
 PRECISIONS = ("32", "bf16-mixed")
+
+
+def dropout_seed(seed: int, step: int) -> int:
+    """The dropout generator's seed for ``step`` of a run seeded ``seed``:
+    one 64-bit word of numpy's SeedSequence of ``(seed + 1, step)``."""
+    words = np.random.SeedSequence([seed + 1, step]).generate_state(2, np.uint32)
+    return int(words[0]) << 32 | int(words[1])
 
 
 @dataclasses.dataclass
@@ -174,11 +185,6 @@ class Trainer:
         self.cfg = TrainerConfig(precision=precision,
                                  gradient_clip_val=gradient_clip_val,
                                  encoder_lr_scale=encoder_lr_scale)
-        dropouts = [m.p for m in task.model.modules()
-                    if isinstance(m, nn.Dropout) and m.p > 0]
-        if dropouts:
-            raise NotImplementedError(f"dropout rates {dropouts} > 0 are not "
-                                      f"ported for training")
         self.task = task
         self.lr = lr
         self.weight_decay = weight_decay
@@ -190,6 +196,7 @@ class Trainer:
         self.optimizer = None
         self.lr_schedule = None
         self.step = 0
+        self._dropout_gen = None
         self.logger = None
         # (epoch, steps, seconds) of each epoch that fit ran.
         self.epoch_times = []
@@ -265,6 +272,13 @@ class Trainer:
                 if torch.is_tensor(v) and v.dtype == torch.float32 else v
                 for k, v in batch.items()}
 
+    def dropout_generator(self) -> torch.Generator:
+        """The generator of this step's dropout masks, on the model's device,
+        seeded by :func:`dropout_seed` from the config's seed and the step."""
+        if self._dropout_gen is None or self._dropout_gen.device != self.device:
+            self._dropout_gen = torch.Generator(device=self.device)
+        return self._dropout_gen.manual_seed(dropout_seed(self.cfg.seed, self.step))
+
     def train_step(self, batch: dict) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``batch``; returns the loss terms of this
         step's forward and the lr it used (0-d tensors, not synchronised)."""
@@ -275,7 +289,8 @@ class Trainer:
         params = None
         if self.mixed:
             params = {n: p.to(torch.bfloat16) for n, p in named.items()}
-        loss, metrics = self.task.loss(self._cast(batch), params)
+        loss, metrics = self.task.loss(self._cast(batch), params,
+                                       self.dropout_generator())
         self.optimizer.zero_grad(set_to_none=True)
         loss.float().backward()
         # A parameter that no path reaches gets grad None, and AdamW would

@@ -20,7 +20,7 @@ from egorear_tpu.models import mvfex as jmvfex
 from egorear_tpu.models.configs import MVFCfg as JMVFCfg
 from egorear_tpu.models.configs import TransformerLayerCfg as JTransformerLayerCfg
 from egorear_tpu_torch.convert import from_flax, load_flax
-from egorear_tpu_torch.entry import flagship_cfg
+from egorear_tpu_torch.entry import flagship_cfg, flagship_cfg_dict
 from egorear_tpu_torch.models import backbone, layers, mvfex, pose3d
 from egorear_tpu_torch.models.configs import MVFCfg, TransformerLayerCfg
 
@@ -33,12 +33,14 @@ def random_variables(shapes, rng, pose_spread=(60.0, 60.0, (-20.0, 80.0)),
 
     Kernels LeCun-normal, biases and norm parameters perturbed away from
     their init, BatchNorm stats non-trivial. Unlike the init, the sampling
-    offsets, attention-weight kernels and position tables are non-zero, so
-    deformable sampling is non-trivial; ``mlp_pred_out``'s bias is a random
-    pose spread over ``pose_spread`` cm (x, y half-widths, z range), so the
-    proposal projects partly inside the fisheye views; the initial heatmap
-    heads get ``heatmap_bias`` added, which sets how many anchors pass the
-    0.5 threshold.
+    offsets, attention-weight kernels and position tables (the query
+    position table too) are non-zero, so deformable sampling is
+    non-trivial; ``mlp_pred_out``'s bias is a random pose spread over
+    ``pose_spread`` cm (x, y half-widths, z range), so the proposal projects
+    partly inside the fisheye views; the initial heatmap heads (the
+    conv-stack heads, or with ``use_1by1_conv`` the estimators' own) get
+    ``heatmap_bias`` added, which sets how many anchors pass the 0.5
+    threshold.
     """
 
     def fill(path, s):
@@ -56,7 +58,9 @@ def random_variables(shapes, rng, pose_spread=(60.0, 60.0, (-20.0, 80.0)),
                                  rng.uniform(z0, z1, n)], -1).reshape(shape)
             b = rng.normal(size=shape) * 0.1
             if path[-3:-1] in (("conv_heatmap_head_front", "Conv_4"),
-                               ("conv_heatmap_head_back", "Conv_4")):
+                               ("conv_heatmap_head_back", "Conv_4"),
+                               ("heatmap_estimator_stereo_front", "conv_heatmap"),
+                               ("heatmap_estimator_stereo_back", "conv_heatmap")):
                 b = b + heatmap_bias
             return b
         if name == "scale":
@@ -67,7 +71,7 @@ def random_variables(shapes, rng, pose_spread=(60.0, 60.0, (-20.0, 80.0)),
             return rng.uniform(0.5, 1.5, size=shape)
         if name == "joint_query_embed":
             return rng.normal(size=shape)
-        if name == "frame_feat_multi_view_pos_embed":
+        if name in ("frame_feat_multi_view_pos_embed", "query_pos_embed"):
             return rng.normal(size=shape) * 0.5
         raise KeyError(f"no fill rule for {'/'.join(path)}")
 
@@ -181,8 +185,9 @@ def test_mvfex_refiner_matches_jax():
     cfg = MVFCfg(input_dims=Cin, embed_dims=C, joint_query_adaptation=True)
     mod = load_flax(mvfex.MVFexRefiner(V, J, (h, h), True, cfg), variables)
     tokens = t(feat_mv.reshape(V * B, h * h, Cin))
+    # JQA reads this view's pooled bottom: bfb as view 0 of a 1-view stack.
     got_hm, got_feat = mod(t(hm), t(nchw(feat_mv[1])), tokens, t(anchors),
-                           t(valid), t(bfb))
+                           t(valid), t(bfb)[:, None], 0)
     assert len(got_hm) == len(want_hm) == 1
     assert_close(got_hm[0], want_hm[0])
     assert_close(got_feat[0], nchw(want_feat[0]))
@@ -260,12 +265,12 @@ def test_from_flax_layout_rules():
                                       k["refiners"]["pos_embed"][v])
 
 
-# -- refused branches ----------------------------------------------------------
+# -- the branches once refused ---------------------------------------------------
 
 
-def _cfg_with(**changes):
-    """The 64 px flagship config with one nested field changed."""
-    cfg = flagship_cfg((64, 64))
+def _cfg_with(cfg=None, **changes):
+    """The 64 px flagship config (or ``cfg``) with nested fields changed."""
+    cfg = flagship_cfg((64, 64)) if cfg is None else cfg
     for path, value in changes.items():
         parts = path.split("__")
         objs = [cfg]
@@ -286,8 +291,30 @@ def _cfg_with(**changes):
     {"heatmap_mvf__use_pred_heatmap_init": False},
     {"pose3d__use_mlp_avgpool": True},
     {"pose3d__use_mlp_heatmap": True},
-    {"pose3d__norm_mlp_pred": True},
+    {"pose3d__norm_mlp_pred": True, "pose3d__coor_norm_min": (-1.0, -1.0, -1.0),
+     "pose3d__coor_norm_max": (1.0, 1.0, 1.0)},
 ], ids=lambda c: next(iter(c)))
 def test_unported_branches_raise(change):
-    with pytest.raises(NotImplementedError):
-        pose3d.EgoRearNet(_cfg_with(**change))
+    """The config branches the port refused until it ported them: the port
+    now builds each, with exactly the JAX package's parameter tree (every
+    flax leaf of ``EgoRearNet.init`` loads strictly, shape for shape, into
+    the port's model) and a forward of the right shapes. Their values are
+    held to JAX in ``test_torch_port_branches*.py``."""
+    from egorear_tpu.models.configs import EgoRearNetCfg as JaxEgoRearNetCfg
+    from egorear_tpu.models.pose3d import EgoRearNet as JaxEgoRearNet
+    from egorear_tpu.ops.camera import CameraRig as JaxRig
+    from egorear_tpu_torch.ops.camera import CameraRig
+
+    cfg = _cfg_with(**change)
+    jnet = JaxEgoRearNet(cfg=_cfg_with(
+        JaxEgoRearNetCfg.from_dict(flagship_cfg_dict((64, 64))), **change))
+    shapes = jax.eval_shape(lambda: jnet.init(
+        jax.random.PRNGKey(0), jax.numpy.zeros((2, 4, 3, 64, 64)),
+        JaxRig.from_calib_file("ego4view_syn")))
+    model = load_flax(pose3d.EgoRearNet(cfg), random_variables(
+        shapes, np.random.default_rng(0))).eval()
+    with torch.inference_mode():
+        preds, hms = model(torch.zeros(2, 4, 3, 64, 64),
+                           CameraRig.from_calib_file("ego4view_syn"))
+    assert [tuple(p.shape) for p in preds] == [(2, 16, 3)] * 4
+    assert [tuple(h.shape) for h in hms] == [(2, 4, 15, 16, 16)] * 2

@@ -146,8 +146,9 @@ def test_mvfex_refiner_matches_jax():
                  lazy_deform=False)
     mod = load_flax(mvfex.MVFexRefiner(V, J, (h, h), True, cfg), variables)
     tokens = t(feat_mv.reshape(V * Bb, h * h, Cin))
+    # JQA reads this view's pooled bottom: bfb as view 0 of a 1-view stack.
     got_hm, got_feat = mod(t(hm), t(nchw(feat_mv[1])), tokens, t(anchors),
-                           t(valid), t(bfb))
+                           t(valid), t(bfb)[:, None], 0)
     assert len(got_hm) == len(want_hm) == 1
     assert_close(got_hm[0], want_hm[0])
     assert_close(got_feat[0], nchw(want_feat[0]))

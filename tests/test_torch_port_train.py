@@ -40,6 +40,7 @@ from egorear_tpu.train.tasks import Pose3DTask as JaxPose3DTask
 from egorear_tpu_torch.convert import from_flax, load_flax
 from egorear_tpu_torch.entry import flagship_cfg_dict
 from egorear_tpu_torch.models import backbone
+from egorear_tpu_torch.models.layers import dropout_generator
 from egorear_tpu_torch.ops import deform_attn, metrics
 from egorear_tpu_torch.ops.deform_attn import (
     LazyDeformSample,
@@ -396,8 +397,20 @@ def test_unported_training_paths_raise(fault, monkeypatch, tmp_path):
         cfg["pose3d_cfg"]["mlp_dropout"] = 0.1
     task = Pose3DTask(cfg, device="cpu")
     if fault == "dropout":
-        with pytest.raises(NotImplementedError):
-            Trainer(task, LR, WD, DECAY_EPOCHS, WARMUP)
+        # Once refused, now taken: the proposal MLP draws its masks from
+        # the trainer's generator, seeded by the step. (Whole steps with
+        # dropout: tests/test_torch_port_branches_train.py.)
+        drop = task.model.pose3d_estimator.mlp_drop
+        assert drop.p == 0.1
+        trainer = Trainer(task, LR, WD, DECAY_EPOCHS, WARMUP)
+        trainer.init_state(steps_per_epoch=1)
+        gen = trainer.dropout_generator()
+        state = gen.get_state()
+        x = torch.ones(B, 1024)
+        with dropout_generator(task.model.train(), gen):
+            y = drop(x)
+        assert not torch.equal(gen.get_state(), state)  # masks were drawn
+        assert 0 < int((y == 0).sum()) < y.numel()
     else:
         with pytest.raises(ValueError):
             Trainer(task, LR, WD, DECAY_EPOCHS, WARMUP, precision="16-mixed")
