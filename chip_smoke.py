@@ -155,6 +155,30 @@ the avgpool and heatmap 3D proposals, ``norm_mlp_pred``), at full width:
      with the heatmap proposal and without ``use_pred_heatmap_init``,
      through the CLI on phase 12's tree.
 
+Data-parallel training (``egorear_tpu_torch.parallel``, the JAX package's
+``data`` mesh axis) and ``remat``:
+
+  16. a: stage 2 (b64) and stage 3 (b32), fp32, at full width, on two ranks
+     sharing the one card over gloo (``parallel.dist.spawn``; B/2 rows a
+     rank) and in one process, from the same state on the same global
+     batch, the anchors pinned to the one process's (:func:`pinned_anchors`):
+     the first step's gradients within TRAIN_GRAD_TOL of scale (or within
+     NOISE_FACTOR times how far ulp noise on the parameters moves the one
+     process's own gradient, where that is larger), parameters within
+     AdamW's bound, BN running stats within TRAIN_STAT_TOL, the ranks'
+     states bitwise equal after three steps, 4 + 4 and 7 + 7 launches a rank
+     and step, samples/s of both (not a speed result on one card); b: the
+     stage-2 yaml through the CLI on phase 12's tree: ``--trainer.devices
+     2`` refused over NCCL on one card, ``fit`` as rank 0 of a one-rank
+     NCCL group (``torchrun``'s environment) and on two gloo ranks (each
+     running ``run.main``; the same launches a rank, states bitwise equal,
+     rank 0's checkpoint), with two cards or more also over NCCL, then
+     ``validate`` of that checkpoint with ``--trainer.devices 2`` (the same
+     metrics on both ranks, within DP_EVAL_TOL of one process's); c: one
+     b32 fp32 stage-3 step with ``remat`` and one without, held to each
+     other as phase 5's, the forward kernels launched twice with ``remat``,
+     both peaks.
+
 Every phase that drives the main path sets the launch counts of all four
 kernels to 0 just before it and reads them just after.
 
@@ -169,6 +193,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -241,6 +266,16 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # Phase 5: per-leaf gradient error over the leaf's largest plain value.
 TRAIN_GRAD_TOL, TRAIN_GRAD_FLOOR, TRAIN_BATCH = 1e-3, 1e-8, 2
 TRAIN_STAT_TOL = 1e-4  # BN running stats after the step, max-abs
+# Phase 16a: a leaf may differ by NOISE_FACTOR times the largest max-abs
+# move of the one-process step's gradient over NOISE_DRAWS draws of
+# NOISE_ULPS fp32 ulps of noise on every parameter, where that exceeds
+# TRAIN_GRAD_TOL of its scale: the step's conditioning, as
+# tests/test_torch_port_rigs.py measures JAX's at one ulp. At these batches
+# thousands of sampling points lie within a rounding of a grid line, where
+# bilinear sampling's gradient jumps. The ranks perturb the step as much:
+# convolutions at half the batch take other cuDNN algorithms (other fp32
+# sums over up to 4608 terms) and BatchNorm combines two halves' statistics.
+NOISE_FACTOR, NOISE_ULPS, NOISE_DRAWS = 4.0, 8, 4
 TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 32, 3, 10
 PROFILED_STEPS = 3  # steps under torch.profiler after a timed run
 TRAIN_SIZE, TRAIN_DEVICE = 256, "cuda"  # a CPU rehearsal may shrink them
@@ -1362,41 +1397,67 @@ def compare_kernel_step(model, trainer, batch, start, want_launches):
         raise AssertionError(f"a ReLU input {kink:.3e} of its call's scale from "
                              f"zero changed sides (tol {FWD_TOL[torch.float32]:g})")
     k, pl = runs["kernel"], runs["plain"]
+    return dict(kernel=k, plain=pl, flips=flips, masks=masks, kink=kink,
+                **hold_step(k, pl))
+
+
+def hold_step(got: dict, want: dict, noise: dict | None = None) -> dict:
+    """One train step's ``got`` against ``want`` from the same state (each
+    a dict of ``grads``, ``params`` and ``stats`` by name and the step's
+    ``lr``): every leaf gradient within TRAIN_GRAD_TOL of its scale, or
+    within NOISE_FACTOR times ``noise[leaf]`` (how far NOISE_ULPS ulps of
+    parameter noise move ``want``'s own gradient) where that is larger (a leaf below the
+    rounding floor against the floor), the parameters within AdamW's bound
+    over that tolerance, the BN running stats within TRAIN_STAT_TOL.
+    Raises listing the worst leaves; returns the worst numbers."""
     # A leaf whose largest gradient is below TRAIN_GRAD_FLOOR of the model's
     # largest is zero in exact arithmetic (the key-projection biases, to
     # which softmax attention is invariant) and holds rounding only: both
     # runs must keep it below that floor.
-    floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in pl["grads"].values())
-    worst_grad, worst_name, n_floor = 0.0, "", 0
+    floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in want["grads"].values())
+    worst_grad, worst_name, n_floor, n_noise = 0.0, "", 0, 0
     worst_tight = worst_loose = 0.0
-    for n, want in pl["grads"].items():
-        scale = float(want.abs().max())
-        got = k["grads"][n]
-        err = float((got - want).abs().max())
+    failed = []
+    for n, w in want["grads"].items():
+        scale = float(w.abs().max())
+        g = got["grads"][n]
+        err = float((g - w).abs().max())
         if scale < floor:
             n_floor += 1
-            if not float(got.abs().max()) <= floor:
-                raise AssertionError(f"gradient of {n}: {float(got.abs().max()):.3e}"
-                                     f" above the rounding floor {floor:.3e}")
+            if not float(g.abs().max()) <= floor:
+                failed.append((float("inf"), f"gradient of {n}: "
+                               f"{float(g.abs().max()):.3e} above the rounding "
+                               f"floor {floor:.3e}"))
             grad_tol = floor
         else:
-            if err / scale > worst_grad:
-                worst_grad, worst_name = err / scale, n
-            if not err <= TRAIN_GRAD_TOL * scale:
-                raise AssertionError(f"gradient of {n}: max-abs {err:.3e} > "
-                                     f"{TRAIN_GRAD_TOL:g} x {scale:.3e}")
             grad_tol = TRAIN_GRAD_TOL * scale
-        tight, loose = _adam_param_check(n, k["params"][n], pl["params"][n],
-                                         want, grad_tol, pl["lr"])
+            if noise is not None and NOISE_FACTOR * noise[n] > grad_tol:
+                grad_tol, n_noise = NOISE_FACTOR * noise[n], n_noise + 1
+            elif err / scale > worst_grad:
+                worst_grad, worst_name = err / scale, n
+            if not err <= grad_tol:
+                failed.append((err / grad_tol, f"gradient of {n}: max-abs "
+                               f"{err:.3e} > {grad_tol:.3e} (scale {scale:.3e})"))
+                continue
+        try:
+            tight, loose = _adam_param_check(n, got["params"][n], want["params"][n],
+                                             w, grad_tol, want["lr"])
+        except AssertionError as e:
+            failed.append((1.0, str(e)))
+            continue
         worst_tight, worst_loose = max(worst_tight, tight), max(worst_loose, loose)
-    stat_err = max(float((k["stats"][n] - v).abs().max())
-                   for n, v in pl["stats"].items())
+    stat_err = max(float((got["stats"][n] - v).abs().max())
+                   for n, v in want["stats"].items())
     if not stat_err <= TRAIN_STAT_TOL:
-        raise AssertionError(f"BN running stats differ by {stat_err:.3e}")
-    return dict(kernel=k, plain=pl, flips=flips, masks=masks, kink=kink,
-                floor=floor, n_floor=n_floor, worst_grad=worst_grad,
-                worst_name=worst_name, worst_tight=worst_tight,
-                worst_loose=worst_loose, stat_err=stat_err)
+        failed.append((stat_err / TRAIN_STAT_TOL,
+                       f"BN running stats differ by {stat_err:.3e}"))
+    if failed:
+        failed.sort(key=lambda f: -f[0])
+        raise AssertionError(f"{len(failed)} checks failed, the worst: "
+                             + "; ".join(m for _, m in failed[:6]))
+    return dict(floor=floor, n_floor=n_floor, n_noise=n_noise,
+                worst_grad=worst_grad, worst_name=worst_name,
+                worst_tight=worst_tight, worst_loose=worst_loose, stat_err=stat_err)
 
 
 def perturb_train_(model, batch, gen) -> None:
@@ -2914,6 +2975,487 @@ def phase_branches(card, model_locs, workdir: str, cli: dict) -> dict:
     return total
 
 
+# Phase 16: data-parallel training (the JAX package's ``data`` mesh axis,
+# ``egorear_tpu_torch.parallel``) and ``remat``. One card holds both ranks
+# of 16a over gloo (NCCL needs a card per rank, and refuses otherwise).
+DP_RANKS = 2
+DP_TIMED = 2  # timed steps after the checked first one, on each side
+DP_EVAL_TOL = 1e-5  # validate: two ranks vs one process, each metric
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():  # a CPU rehearsal has nothing to wait for
+        torch.cuda.synchronize()
+
+
+def _release_cache() -> None:
+    """Hand this process's cached, unused device memory back to the card,
+    for ranks in other processes to allocate (earlier phases leave tens of
+    GiB in PyTorch's cache)."""
+    import gc
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _peak_gib() -> float:
+    return (torch.cuda.max_memory_allocated() / 2**30
+            if torch.cuda.is_available() else 0.0)
+
+
+def state_hash(model) -> str:
+    """sha256 of every parameter's and buffer's bytes, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_task(stage: str):
+    """Stage 2 or the stage-3 cascade at the yamls' width and depth, fp32,
+    lazy order, lr warmed over one step (so that AdamW's first step moves
+    the parameters), no ImageNet (the start state is loaded)."""
+    from egorear_tpu_torch import entry
+
+    if stage == "stage2":
+        return entry.build_stage2((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE, seed=0,
+                                  steps_per_epoch=1, warmup_iters=1, imagenet=False)
+    return entry.build_train((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE, "32", seed=0,
+                             steps_per_epoch=1, warmup_iters=1, imagenet=False)
+
+
+def dp_batch(stage: str, gen) -> dict:
+    """The stage's seeded global batch (b64 stage 2, b32 stage 3)."""
+    if stage == "stage2":
+        return stage_batch(STAGE_B, 4, TRAIN_SIZE, gen)
+    return train_batch(STAGE3_B, TRAIN_SIZE, gen)
+
+
+def dp_launches(stage: str, steps: int) -> dict:
+    """Lazy launches of ``steps`` steps of a stage, in each rank as in one
+    process: 4 + 4 a stage-2 step, 7 + 7 a stage-3 step."""
+    return stage2_launches(steps) if stage == "stage2" else expected_launches(
+        True, steps, steps)
+
+
+@contextlib.contextmanager
+def pinned_anchors(anchors: list, rows: slice | None = None,
+                   flips: list | None = None):
+    """With ``rows`` None, records the outputs of every
+    ``HeatmapMVFexNet.get_anchors_2d`` (the refiners' argmax anchors and
+    their validity) and ``CameraRig.project`` (the lifter's projected
+    anchors, in-view flags and mutated anchors) call inside, in call order,
+    into ``anchors``. Otherwise the i-th call returns the i-th record's
+    ``rows`` (every output is batch-major) and appends to ``flips`` how many
+    of its own elements differed. An argmax near a tie or a point near the
+    0.5 threshold or a view's edge moves a whole sampling path under a
+    rounding-sized change, as a ReLU near its kink does (:func:`pinned_relus`);
+    gradients then differ by a large share of their scale."""
+    from egorear_tpu_torch.models.mvfex import HeatmapMVFexNet
+    from egorear_tpu_torch.ops.camera import CameraRig
+
+    originals = {HeatmapMVFexNet: HeatmapMVFexNet.get_anchors_2d,
+                 CameraRig: CameraRig.project}
+    calls = [0]
+
+    def pin(fn):
+        @functools.wraps(fn)
+        def pinned(self, *args, **kwargs):
+            out = fn(self, *args, **kwargs)
+            if rows is None:
+                anchors.append(tuple(t.detach().clone() for t in out))
+                return out
+            want = tuple(t[rows] for t in anchors[calls[0]])
+            calls[0] += 1
+            flips.append(sum(int((o != w).sum()) for o, w in zip(out, want)))
+            return want
+        return pinned
+
+    HeatmapMVFexNet.get_anchors_2d = pin(originals[HeatmapMVFexNet])
+    CameraRig.project = pin(originals[CameraRig])
+    try:
+        yield
+    finally:
+        HeatmapMVFexNet.get_anchors_2d = originals[HeatmapMVFexNet]
+        CameraRig.project = originals[CameraRig]
+
+
+def first_step(trainer, batch, pin=contextlib.nullcontext) -> dict:
+    """One step on ``batch`` inside ``pin()``: its lr, and its gradients,
+    updated parameters and BN running stats copied to the host."""
+    model = trainer.task.model
+    with pin():
+        lr = float(trainer.train_step(batch)["lr"])
+    return dict(lr=lr, grads={n: p.grad.to("cpu", copy=True)
+                              for n, p in model.named_parameters()},
+                params={n: p.detach().to("cpu", copy=True)
+                        for n, p in model.named_parameters()},
+                stats={k: v.to("cpu", copy=True) for k, v in model.state_dict().items()
+                       if "running" in k})
+
+
+def dp_steps(trainer, batch, pin=contextlib.nullcontext) -> dict:
+    """:func:`first_step`, then DP_TIMED timed steps; the launch counts
+    over all of them, the final state's hash, the peak memory."""
+    model = trainer.task.model
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    first = first_step(trainer, batch, pin)
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED):
+        trainer.train_step(batch)
+    _sync()
+    ms = (time.perf_counter() - t0) / DP_TIMED * 1e3
+    return dict(first=first, ms=ms, launched=read_launches(),
+                hash=state_hash(model), peak=_peak_gib())
+
+
+def dp_rank(spec: dict) -> dict:
+    """A rank of phase 16a: for each stage, the start state the parent
+    wrote, the parent's seeded global batch regenerated on this rank's card
+    and this rank's rows of it, :func:`dp_steps` with the first step's
+    anchors pinned to the parent's rows; rank 0 writes its first step to
+    the parent's file."""
+    from egorear_tpu_torch.parallel import dist
+
+    globals().update(spec["globals"])  # the parent's settings (a rehearsal's)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for stage, (start, seed, path, anchor_path) in spec["stages"].items():
+        task, trainer = dp_task(stage)
+        task.model.load_state_dict(torch.load(start, map_location=TRAIN_DEVICE,
+                                              weights_only=True))
+        batch = dp_batch(stage, torch.Generator(device=TRAIN_DEVICE).manual_seed(seed))
+        rows = trainer.shard.rows(batch["img"].shape[0])
+        anchors = torch.load(anchor_path, map_location=TRAIN_DEVICE, weights_only=True)
+        flips = []
+        out[stage] = dp_steps(trainer, {k: v[rows] for k, v in batch.items()},
+                              functools.partial(pinned_anchors, anchors, rows, flips))
+        out[stage]["flips"] = flips
+        first = out[stage].pop("first")
+        if dist.rank() == 0:
+            torch.save(first, path)
+        del task, trainer, batch
+    return out
+
+
+def phase_data_parallel(card, workdir: str) -> dict:
+    """16a: stage 2 (b64) and stage 3 (b32), fp32, lazy order, at full
+    width: two ranks on the one card over gloo (``parallel.dist.spawn``)
+    and one process, from the same state on the same global batch: the
+    first step's gradients, parameters and BN running stats against each
+    other (:func:`hold_step`, the anchors of all three pinned to the one
+    process's, :func:`pinned_anchors`; a leaf's noise is how far NOISE_ULPS
+    ulps of parameter noise move the one-process gradient), the ranks' states
+    bitwise equal after
+    1 + DP_TIMED steps, each rank's launches exact. Every stage is checked
+    before any failure is raised. Returns the ranks' launch counts,
+    summed."""
+    from egorear_tpu_torch.parallel import dist
+
+    t0 = time.perf_counter()
+    spec = dict(globals={k: globals()[k] for k in (
+        "TRAIN_DEVICE", "TRAIN_SIZE", "STAGE_B", "STAGE3_B", "LAUNCHES_PER_LAYER",
+        "DP_TIMED")}, stages={})
+    one, noise = {}, {}
+    for stage, seed in (("stage2", 16), ("stage3", 17)):
+        task, trainer = dp_task(stage)
+        gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(seed)
+        batch = dp_batch(stage, gen)
+        perturb_train_(task.model, batch, gen)  # valid anchors: the refiners learn
+        start = os.path.join(workdir, f"dp_{stage}_start.pt")
+        torch.save(task.model.state_dict(), start)
+        # The one process's step, its anchors recorded; then from the same
+        # state with NOISE_ULPS ulps of noise on every parameter, the anchors
+        # pinned, NOISE_DRAWS times: how far its gradients move is the
+        # step's conditioning.
+        anchors, flips = [], []
+        one[stage] = dp_steps(trainer, batch, functools.partial(pinned_anchors, anchors))
+        noise[stage] = dict.fromkeys(one[stage]["first"]["grads"], 0.0)
+        for draw in range(NOISE_DRAWS):
+            task.model.load_state_dict(torch.load(start, map_location=TRAIN_DEVICE,
+                                                  weights_only=True))
+            signs = torch.Generator(device=TRAIN_DEVICE).manual_seed(draw)
+            with torch.no_grad():
+                for p in task.model.parameters():
+                    flip = torch.randint(0, 2, p.shape, generator=signs, device=p.device)
+                    p.mul_(1 + (2 * flip - 1).to(p.dtype) * NOISE_ULPS * 2.0**-23)
+            trainer.init_state(steps_per_epoch=1)
+            jittered = first_step(trainer, batch, functools.partial(
+                pinned_anchors, anchors, slice(None), flips))
+            for n, g in one[stage]["first"]["grads"].items():
+                noise[stage][n] = max(noise[stage][n],
+                                      float((g - jittered["grads"][n]).abs().max()))
+        one[stage]["flips"] = flips
+        anchor_path = os.path.join(workdir, f"dp_{stage}_anchors.pt")
+        torch.save(anchors, anchor_path)
+        spec["stages"][stage] = (start, seed, os.path.join(workdir, f"dp_{stage}_rank0.pt"),
+                                 anchor_path)
+        del task, trainer, batch, jittered
+    _release_cache()
+    t1 = time.perf_counter()
+    ranks = dist.spawn(dp_rank, DP_RANKS, spec, device=TRAIN_DEVICE, backend="gloo")
+    t_ranks = time.perf_counter() - t1
+    total, failed = dict.fromkeys(KERNELS, 0), []
+    for stage, B in (("stage2", STAGE_B), ("stage3", STAGE3_B)):
+        want = dp_launches(stage, 1 + DP_TIMED)
+        got = [r[stage] for r in ranks]
+        if one[stage]["launched"] != want or any(g["launched"] != want for g in got):
+            failed.append(f"{stage} launched {one[stage]['launched']} (one "
+                          f"process), {[g['launched'] for g in got]} (ranks), "
+                          f"expected {want} each")
+        if len({g["hash"] for g in got}) != 1:
+            failed.append(f"{stage}: the ranks' states differ after "
+                          f"{1 + DP_TIMED} steps")
+        for k, v in got[0]["launched"].items():
+            total[k] += v * DP_RANKS
+        ms = max(g["ms"] for g in got)
+        rank0 = torch.load(spec["stages"][stage][2], weights_only=True)
+        grads = one[stage]["first"]["grads"]
+        floor = TRAIN_GRAD_FLOOR * max(float(w.abs().max()) for w in grads.values())
+        leaves = sorted(((float((rank0["grads"][n] - w).abs().max()), noise[stage][n],
+                          float(w.abs().max()), n)
+                         for n, w in grads.items() if float(w.abs().max()) >= floor),
+                        key=lambda t: -t[0] / t[2])
+        worst = "; ".join(f"{n} {e / sc:.2e} vs {j / sc:.2e}" for e, j, sc, n in leaves[:4])
+        print(f"[16a] {stage} {TRAIN_SIZE}px B={B} fp32: {B * 1e3 / ms:.1f} samples/s "
+              f"on {DP_RANKS} ranks x B={B // DP_RANKS} sharing one card over gloo "
+              f"({ms:.1f} ms/step, {DP_TIMED} steps, host clock, the slower rank; "
+              f"peak {max(g['peak'] for g in got):.2f} GiB a rank) vs "
+              f"{B * 1e3 / one[stage]['ms']:.1f} in one process ({one[stage]['ms']:.1f}"
+              f" ms/step, peak {one[stage]['peak']:.2f} GiB): not a speed result; "
+              f"anchor elements pinned that differed: {one[stage]['flips']} (one "
+              f"process, {NOISE_ULPS}-ulp noise), {[g['flips'] for g in got]} (ranks); the "
+              f"leaves furthest off, max-abs/scale, ranks vs {NOISE_ULPS}-ulp noise's move: "
+              f"{worst} | {card}", flush=True)
+        try:
+            r = hold_step(rank0, one[stage]["first"], noise[stage])
+        except AssertionError as e:
+            failed.append(f"{stage}: {e}")
+            continue
+        print(f"[16a] {stage} {TRAIN_SIZE}px B={B} fp32 lazy order, {DP_RANKS} ranks "
+              f"x B={B // DP_RANKS} on one card over gloo vs one process: worst leaf "
+              f"gradient max-abs/scale {r['worst_grad']:.3e} ({r['worst_name']}, tol "
+              f"{TRAIN_GRAD_TOL:g}; {r['n_floor']} leaves below the floor "
+              f"{r['floor']:.1e}; {r['n_noise']} held at {NOISE_FACTOR:g}x their "
+              f"move under {NOISE_ULPS}-ulp noise); params after the first "
+              f"step {r['worst_tight']:.3e} "
+              f"where the gradient is determined, {r['worst_loose']:.3e} elsewhere "
+              f"(Adam bound 2 lr = {2 * one[stage]['first']['lr']:.1e}); BN running "
+              f"stats {r['stat_err']:.3e} (tol {TRAIN_STAT_TOL:g}); the ranks' "
+              f"states bitwise equal after {1 + DP_TIMED} steps; launches a rank "
+              f"lazy_deform_sample {got[0]['launched']['lazy_deform_sample']}, "
+              f"lazy_deform_sample_bwd {got[0]['launched']['lazy_deform_sample_bwd']} "
+              f"= {1 + DP_TIMED} steps x {want['lazy_deform_sample'] // (1 + DP_TIMED)}"
+              f" at kernel batch {4 * B // DP_RANKS} | {card}", flush=True)
+    print(f"[16a] {time.perf_counter() - t0:.1f} s (ranks {t_ranks:.1f} s) | {card}",
+          flush=True)
+    if failed:
+        raise AssertionError("[16a] " + " | ".join(failed))
+    return total
+
+
+def cli_rank(argv: list) -> dict:
+    """A rank of 16b: ``run.main(argv)`` (the group is up, as under
+    ``torchrun``) with the launch counts from 0 over it; a ``fit`` returns
+    the epoch's steps, the state's hash and rank 0's version directory, the
+    others their metrics."""
+    from egorear_tpu_torch import run
+    from egorear_tpu_torch.train.trainer import Trainer
+
+    reset_launches()
+    result = run.main(argv)
+    _sync()
+    out = dict(launched=read_launches())
+    if isinstance(result, Trainer):
+        out.update(steps=result.epoch_times[0][1], hash=state_hash(result.task.model),
+                   log_dir=result.logger.dir)
+    else:
+        out["metrics"] = result
+    return out
+
+
+@contextlib.contextmanager
+def torchrun_env(world: int = 1):
+    """The environment ``torchrun`` gives rank 0 of ``world``, on this host."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with contextlib.ExitStack() as stack:
+        for k, v in dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE=str(world),
+                         LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                         MASTER_PORT=str(port)).items():
+            stack.enter_context(env_var(k, v))
+        yield
+
+
+def phase_cli_data_parallel(card, workdir: str, cli: dict) -> dict:
+    """16b: stage 2 through the CLI on phase 12's tree (grafted from its
+    stage-1 checkpoints): ``--trainer.devices 2`` with NCCL refused on one
+    card; ``fit`` as rank 0 of a one-rank NCCL group (``torchrun``'s
+    environment); ``fit`` on two ranks over gloo on the one card, each
+    running ``run.main`` in a group of ``parallel.dist.spawn``, as
+    ``--trainer.devices 2`` starts it; with two cards or more also ``fit``
+    with ``--trainer.devices 2`` over NCCL. Every rank's launches exact,
+    the ranks' states bitwise equal, rank 0's checkpoint. Then
+    ``validate`` of that checkpoint with ``--trainer.devices 2`` (gloo,
+    ``run.main``'s own spawn): the same metrics on both ranks, within
+    DP_EVAL_TOL of the one-process ``validate``. Returns the launch counts
+    of the in-process runs and the ranks, summed."""
+    from egorear_tpu_torch import run
+    from egorear_tpu_torch.config.loader import load_config
+    from egorear_tpu_torch.parallel import dist
+
+    t0 = time.perf_counter()
+    yaml_path = os.path.join(CONFIGS, "ego4view_syn_heatmap_mvfex-n1_jqa.yaml")
+    base = ["--config", yaml_path, "--model.data_root", cli["root"],
+            "--device", TRAIN_DEVICE] + CLI_OVERRIDES
+    B = int(load_config(yaml_path, base[2:]).init_args["batch_size"])
+    steps, per = CLI_TRAIN_FRAMES // B, launches_mvfex()
+    want = cli_launches(steps + 1, steps, per)  # each rank: every step, one val batch
+
+    def fit(name, devices):
+        return (["fit"] + base + cli["grafts"] + [
+            "--trainer.max_epochs", "1", "--trainer.devices", str(devices),
+            "--trainer.save_dir", os.path.join(workdir, "cli_dp", name)])
+
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(launched, n=1):
+        for k, v in launched.items():
+            total[k] += n * v
+
+    cards = torch.cuda.device_count()
+    if TRAIN_DEVICE == "cuda" and cards < DP_RANKS:
+        try:
+            run.main(fit("nccl_refused", DP_RANKS))
+        except ValueError as e:
+            if "NCCL needs one CUDA card per rank" not in str(e):
+                raise
+            refused = str(e).split(".")[0]
+        else:
+            raise AssertionError("[16b] NCCL took two ranks on one card")
+    with torchrun_env(1):
+        trainer, launched, _ = cli_run(fit("nccl_1", 1))
+    if dist.is_initialized() or trainer.epoch_times[0][1] != steps or launched != want:
+        raise AssertionError(f"[16b] NCCL world 1: {trainer.epoch_times} launched "
+                             f"{launched}, expected {steps} steps, {want}")
+    add(launched)
+    del trainer
+    _release_cache()
+    ranks = dist.spawn(cli_rank, DP_RANKS, fit("gloo_2", DP_RANKS),
+                       device=TRAIN_DEVICE, backend="gloo")
+    for r in ranks:
+        if r["steps"] != steps or r["launched"] != want:
+            raise AssertionError(f"[16b] gloo rank: {r['steps']} steps launched "
+                                 f"{r['launched']}, expected {steps}, {want}")
+        add(r["launched"])
+    ckpt = os.path.join(ranks[0]["log_dir"], "checkpoints", "epoch=0.pt")
+    if (len({r["hash"] for r in ranks}) != 1 or ranks[1]["log_dir"] is not None
+            or not os.path.exists(ckpt)
+            or not os.path.exists(os.path.join(ranks[0]["log_dir"], "metrics.csv"))):
+        raise AssertionError(f"[16b] gloo ranks: states equal "
+                             f"{len({r['hash'] for r in ranks}) == 1}, log dirs "
+                             f"{[r['log_dir'] for r in ranks]}, checkpoint "
+                             f"{os.path.exists(ckpt)}")
+    nccl2 = ""
+    if cards >= DP_RANKS:
+        run.main(fit("nccl_2", DP_RANKS))
+        if not glob_one(os.path.join(workdir, "cli_dp", "nccl_2", "lightning_logs",
+                                     "version_*", "checkpoints", "epoch=0.pt")):
+            raise AssertionError("[16b] NCCL on two cards wrote no checkpoint")
+        nccl2 = f"; fit over NCCL on {DP_RANKS} of the {cards} cards"
+    val = ["validate"] + base + ["--ckpt_path", ckpt]
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):  # the ranks' own prints go through
+        per_rank = run.main(val + ["--trainer.devices", str(DP_RANKS)], backend="gloo")
+    one, launched, _ = cli_run(val + ["--trainer.devices", "1"])
+    add(launched)
+    if any(m != per_rank[0] for m in per_rank[1:]):
+        raise AssertionError(f"[16b] validate differs between ranks: {per_rank}")
+    worst = max(abs(per_rank[0][k] - v) / max(1.0, abs(v)) for k, v in one.items())
+    if sorted(one) != sorted(per_rank[0]) or not worst <= DP_EVAL_TOL:
+        raise AssertionError(f"[16b] validate on {DP_RANKS} ranks vs one process: "
+                             f"{worst:.3e} (tol {DP_EVAL_TOL:g})")
+    print(f"[16b] CLI stage 2 B={B} on phase 12's tree: "
+          + (f"--trainer.devices {DP_RANKS} over NCCL refused ({refused}); "
+             if TRAIN_DEVICE == "cuda" and cards < DP_RANKS else "")
+          + f"fit as rank 0 of a one-rank NCCL group ({steps} steps, launches "
+          f"lazy_deform_sample {want['lazy_deform_sample']}, lazy_deform_sample_bwd "
+          f"{want['lazy_deform_sample_bwd']}); fit on {DP_RANKS} ranks over gloo on "
+          f"one card, each rank the same launches at B={B // DP_RANKS}, their "
+          f"states bitwise equal, rank 0's epoch=0.pt and metrics.csv{nccl2}; "
+          f"validate on {DP_RANKS} ranks: the same {len(one)} metrics on each, "
+          f"{worst:.3e} from the one process's (tol {DP_EVAL_TOL:g}); "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    return total
+
+
+def glob_one(pattern: str) -> bool:
+    import glob
+
+    return len(glob.glob(pattern)) == 1
+
+
+def phase_remat(card) -> dict:
+    """16c: one b32 fp32 stage-3 step with ``remat`` and one without, from
+    the same state on the same batch: held to each other as phase 5's
+    steps (:func:`hold_step`); the rematerialised step launches the
+    forward kernels twice (its forward runs again in the backward). Prints
+    both peaks. Returns the launch counts of both steps."""
+    task, trainer = dp_task("stage3")
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(18)
+    batch = train_batch(STAGE3_B, TRAIN_SIZE, gen)
+    perturb_train_(task.model, batch, gen)
+    start = {k: v.to("cpu", copy=True) for k, v in task.model.state_dict().items()}
+    runs, total = {}, dict.fromkeys(KERNELS, 0)
+    for remat in (False, True):
+        task.model.load_state_dict(start)
+        trainer.init_state(steps_per_epoch=1)
+        trainer.cfg.remat = remat
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        lr = float(trainer.train_step(batch)["lr"])
+        _sync()
+        launched = read_launches()
+        want = expected_launches(True, 2 if remat else 1, 1)
+        if launched != want:
+            raise AssertionError(f"[16c] remat={remat} launched {launched}, "
+                                 f"expected {want}")
+        for k, v in launched.items():
+            total[k] += v
+        model = task.model
+        runs[remat] = dict(
+            lr=lr, peak=_peak_gib(), launched=launched,
+            grads={n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            params={n: p.detach().clone() for n, p in model.named_parameters()},
+            stats={k: v.clone() for k, v in model.state_dict().items() if "running" in k})
+    r = hold_step(runs[True], runs[False])
+    print(f"[16c] stage 3 {TRAIN_SIZE}px B={STAGE3_B} fp32 step with remat vs "
+          f"without: worst leaf gradient max-abs/scale {r['worst_grad']:.3e} "
+          f"({r['worst_name']}, tol {TRAIN_GRAD_TOL:g}); params "
+          f"{r['worst_tight']:.3e} where the gradient is determined, "
+          f"{r['worst_loose']:.3e} elsewhere; BN running stats {r['stat_err']:.3e} "
+          f"(tol {TRAIN_STAT_TOL:g}); peak {runs[True]['peak']:.2f} GiB with remat, "
+          f"{runs[False]['peak']:.2f} GiB without; launches lazy_deform_sample "
+          f"{runs[True]['launched']['lazy_deform_sample']} (forward and recompute) "
+          f"vs {runs[False]['launched']['lazy_deform_sample']}, "
+          f"lazy_deform_sample_bwd {runs[True]['launched']['lazy_deform_sample_bwd']}"
+          f" | {card}", flush=True)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -2983,6 +3525,10 @@ def main() -> int:
             dp_launched = timed("14", phase_device_preprocess, card, workdir, cli)
             branch_launched = timed("15", phase_branches, card, model_locs,
                                     workdir, cli)
+            ddp_launched = timed("16a", phase_data_parallel, card, workdir)
+            ddp_cli_launched = timed("16b", phase_cli_data_parallel, card, workdir,
+                                     cli)
+            remat_launched = timed("16c", phase_remat, card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[7] main-path launches: serving forward lazy_deform_sample "
@@ -3007,7 +3553,14 @@ def main() -> int:
           f"lazy_deform_sample_bwd {dp_launched['cache_in_memory']['lazy_deform_sample_bwd']}"
           f"; branches (serving and CLI) lazy_deform_sample "
           f"{branch_launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
-          f"{branch_launched['lazy_deform_sample_bwd']} | {card}", flush=True)
+          f"{branch_launched['lazy_deform_sample_bwd']}; data-parallel steps (both "
+          f"ranks) lazy_deform_sample {ddp_launched['lazy_deform_sample']}, "
+          f"lazy_deform_sample_bwd {ddp_launched['lazy_deform_sample_bwd']}; "
+          f"data-parallel CLI lazy_deform_sample "
+          f"{ddp_cli_launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
+          f"{ddp_cli_launched['lazy_deform_sample_bwd']}; remat lazy_deform_sample "
+          f"{remat_launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
+          f"{remat_launched['lazy_deform_sample_bwd']} | {card}", flush=True)
     # Each main path's counts, zeroed before and read after its own run;
     # ``launches`` is their sum.
     by_path = {"serving_lazy": serve[True], "serving_reference": serve[False],
@@ -3016,7 +3569,8 @@ def main() -> int:
                "cli_v2_and_real_world": rigs_launched,
                "cli_device_preprocess": dp_launched["device_preprocess"],
                "cli_cache_in_memory": dp_launched["cache_in_memory"],
-               "branches": branch_launched}
+               "branches": branch_launched, "data_parallel": ddp_launched,
+               "cli_data_parallel": ddp_cli_launched, "remat": remat_launched}
     print("[7] seconds by phase: "
           + " ".join(f"{k}={v:.1f}" for k, v in seconds.items())
           + f"; total {time.perf_counter() - t0:.1f} | {card}", flush=True)

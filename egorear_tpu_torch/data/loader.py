@@ -1,5 +1,5 @@
 """Batched host loader with threaded decode and transfer to the card (the
-JAX package's ``data/loader.py``, one process).
+JAX package's ``data/loader.py``).
 
 A thread pool of ``num_workers`` decodes samples (PIL releases the GIL)
 and each worker copies its sample's arrays straight into its row of the
@@ -15,8 +15,12 @@ become lists and stay on the host.
 The batch-index sequence is the JAX loader's: ``np.random.default_rng(seed
 + epoch)`` shuffles the indices, ``drop_last`` drops a partial last batch,
 and ``pad_last`` fills it by repeating its last index and reports the true
-count in ``__valid_n__`` (a host int). Multi-process slicing of each batch
-is DDP's (ROADMAP Queue A, DDP over NCCL).
+count in ``__valid_n__`` (a host int, the global batch's).
+
+Data-parallel (``shard``, a :class:`~egorear_tpu_torch.parallel.dist.
+DataShard` of W ranks): every rank walks the same global index sequence
+and loads only its contiguous B/W rows of each batch, as the JAX loader's
+processes do; W must divide B. ``num_workers`` threads are per process.
 """
 
 from __future__ import annotations
@@ -71,7 +75,13 @@ class _Batch:
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 8, seed: int = 0,
-                 pad_last: bool = False, device=None):
+                 pad_last: bool = False, device=None, shard=None):
+        if shard is not None:
+            shard.rows(batch_size)  # raises unless the ranks divide the batch
+            if not (drop_last or pad_last):
+                raise ValueError("a sharded loader needs full batches: "
+                                 "drop_last or pad_last")
+        self.shard = shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -92,7 +102,7 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def _batch_indices(self):
-        """Yields (index array, true count) per batch."""
+        """Yields (global index array, true count) per batch."""
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
@@ -124,6 +134,8 @@ class DataLoader:
                 return out
 
             for idxs, true_n in self._batch_indices():
+                if self.shard is not None:
+                    idxs = idxs[self.shard.rows(self.batch_size)]
                 batch = _Batch(len(idxs), pin)
                 pending.append((batch, [pool.submit(self._fill, batch, j, int(i))
                                         for j, i in enumerate(idxs)], true_n))

@@ -30,19 +30,57 @@ class BatchNorm2d(nn.BatchNorm2d):
     views). The statistics are computed in fp32 whatever the input dtype, as
     flax's ``force_float32_reductions`` does, and the running stats stay
     fp32. Eval mode is ``nn.BatchNorm2d``'s.
+
+    With ``shard`` (a :class:`~egorear_tpu_torch.parallel.dist.DataShard`
+    of more than one rank, set by :func:`~egorear_tpu_torch.models.layers.
+    data_parallel`) the statistics are the global batch's, as under the JAX
+    package's sharded jit: each rank's (count, mean, M2) is gathered by a
+    differentiable all-reduce and combined in rank order (Chan's formula),
+    in fp32 or the input's wider dtype, so the backward flows through the
+    global statistics and every rank updates the same running stats. With
+    ``replay`` (a rematerialised forward's second run) the running stats
+    are not updated again.
     """
+
+    shard = None
+    replay = False
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
+        if self.shard is not None and self.shard.world > 1:
+            return self._global_forward(x)
+        if not self.replay:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+                self._update(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _update(self, mean, var) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        self.num_batches_tracked.add_(1)
+
+    def _global_forward(self, x):
+        from egorear_tpu_torch.parallel import dist
+
+        dt = torch.promote_types(x.dtype, torch.float32)
+        var, mean = torch.var_mean(x.to(dt), dim=(0, 2, 3), unbiased=False)
+        n = torch.full_like(mean, x.numel() // x.shape[1])
+        count, means, m2 = dist.gather(torch.stack([n, mean, var * n]),
+                                       self.shard).unbind(1)
+        total = count.sum(0)
+        mean = (count * means).sum(0) / total
+        var = (m2 + count * (means - mean) ** 2).sum(0) / total
+        if not self.replay:
+            with torch.no_grad():
+                self._update(mean.to(self.running_mean.dtype),
+                             var.to(self.running_var.dtype))
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(dt)
+        shift = self.bias.to(dt) - mean * scale
+        return (x.to(dt) * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
 
 
 def _bn(channels: int, folded: bool) -> nn.Module:

@@ -57,7 +57,19 @@ class Dropout(nn.Module):
     ``1 / (1 - p)``, else zeroed. The draws come from the module's
     ``generator`` (set by :func:`dropout_generator`), never from the global
     RNG; in train mode without one this raises. In eval mode, or at rate 0,
-    the identity."""
+    the identity.
+
+    With ``shard`` (a :class:`~egorear_tpu_torch.parallel.dist.DataShard`
+    of W > 1 ranks, set by :func:`data_parallel`) the module draws the
+    global batch's (W n, ...) uniforms and keeps this rank's n rows, so W
+    ranks drop bitwise what one process drops on the whole batch. The
+    leading axis must be the batch's, in global order, a rank holding a
+    contiguous block of it: true at every call site (the FFNs' (B, J, C)
+    tokens in the refiners and the lifting layers, the proposal MLP's
+    (B, features)).
+    """
+
+    shard = None
 
     def __init__(self, p: float = 0.0):
         super().__init__()
@@ -79,7 +91,13 @@ class Dropout(nn.Module):
                                f"generator: run the model under "
                                f"dropout_generator(model, gen)")
         keep = 1.0 - self.p
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        if self.shard is not None and self.shard.world > 1:
+            n = x.shape[0]
+            u = torch.rand((n * self.shard.world,) + x.shape[1:],
+                           generator=self.generator, device=x.device)
+            u = u[self.shard.rank * n:(self.shard.rank + 1) * n]
+        else:
+            u = torch.rand(x.shape, generator=self.generator, device=x.device)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -100,6 +118,25 @@ def dropout_generator(model: nn.Module,
     finally:
         for m, g in zip(drops, saved):
             m.generator = g
+
+
+@contextlib.contextmanager
+def data_parallel(model: nn.Module, shard) -> Iterator[None]:
+    """Within the block, every BatchNorm and :class:`Dropout` of ``model``
+    in train mode acts on the global batch of the data-parallel ``shard``
+    (a :class:`~egorear_tpu_torch.parallel.dist.DataShard`; see each
+    class). ``None`` changes nothing."""
+    from egorear_tpu_torch.models.backbone import BatchNorm2d
+
+    mods = ([m for m in model.modules() if isinstance(m, (BatchNorm2d, Dropout))]
+            if shard is not None else [])
+    for m in mods:
+        m.shard = shard
+    try:
+        yield
+    finally:
+        for m in mods:
+            del m.shard
 
 
 class FFN(nn.Module):

@@ -19,7 +19,16 @@ through ``train/torch_convert.py``). All 12 yamls run, the stereo-pair
 (V = 2) and real-world (``ego4view_rw*``) ones included.
 Precision ``32`` runs fp32 with TF32 off for matmuls and cuDNN convs.
 Prints the metrics (``test``/``validate``) or ``{"predictions": path}``
-(``predict``) as JSON on stdout.
+(``predict``) as JSON on stdout (rank 0).
+
+Data-parallel (the JAX package's ``data`` mesh axis;
+:mod:`egorear_tpu_torch.parallel.dist`): ``--trainer.devices N`` starts N
+local ranks (start method ``spawn``, NCCL on CUDA, one card each; unset,
+one rank per card, as the JAX package takes every device), and under
+``torchrun --nproc_per_node N -m egorear_tpu_torch.run ...`` each process
+is the rank its environment names, on card ``LOCAL_RANK`` (the launcher's
+world size wins over ``devices``). The kernels are built once before the
+ranks start.
 """
 
 from __future__ import annotations
@@ -27,12 +36,15 @@ from __future__ import annotations
 import argparse
 import json
 import os
+from typing import Optional
 
 import numpy as np
 import torch
 
+from egorear_tpu_torch import kernels
 from egorear_tpu_torch.config.loader import load_config
 from egorear_tpu_torch.data.datasets import get_dataset
+from egorear_tpu_torch.parallel import dist
 from egorear_tpu_torch.train import checkpoint as ckpt_lib
 from egorear_tpu_torch.train.tasks import TASKS, resolve_device
 from egorear_tpu_torch.train.trainer import Trainer, no_decay_mask_for
@@ -131,10 +143,21 @@ def load_eval_ckpt(task, cfg, ckpt_path: str) -> None:
     logger.info(f"loaded eval checkpoint {ckpt_path}")
 
 
-def main(argv=None):
+def ranks_asked(devices: Optional[int], device_type: str) -> int:
+    """The data-parallel ranks ``devices`` asks for: every card when it is
+    unset (the JAX package's ``None = all``), one on the CPU."""
+    if devices:
+        return devices
+    return torch.cuda.device_count() if device_type == "cuda" else 1
+
+
+def main(argv=None, backend: Optional[str] = None):
     """Run one subcommand. Returns the fitted trainer (``fit``), the
     metrics (``test``, ``validate``) or the predictions' path
-    (``predict``)."""
+    (``predict``); when this call starts several ranks, the list of their
+    results (None for ``fit``, and for ``predict`` but on rank 0).
+    ``backend`` is the process group's when this call makes one (NCCL on
+    CUDA, gloo on the CPU by default; gloo lets ranks share a card)."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("subcommand", choices=["fit", "test", "predict", "validate"])
     parser.add_argument("--config", required=True)
@@ -143,9 +166,37 @@ def main(argv=None):
                         help="torch device (default: cuda; cpu runs the plain "
                              "versions of the kernels)")
     args_ns, overrides = parser.parse_known_args(argv)
-
-    device = resolve_device(args_ns.device, "run (pass --device cpu for the CPU)")
     cfg = load_config(args_ns.config, overrides)
+    device_type = torch.device(args_ns.device or "cuda").type
+    if dist.is_initialized():
+        return _run(args_ns, cfg)
+    if dist.torchrun_env():
+        with dist.torchrun_group(device_type, backend):
+            if cfg.trainer.devices and cfg.trainer.devices != dist.world_size():
+                logger.warning(f"trainer.devices={cfg.trainer.devices}: the "
+                               f"launcher's {dist.world_size()} ranks run")
+            if device_type == "cuda":
+                if int(os.environ.get("LOCAL_RANK", 0)) == 0:
+                    kernels.build()  # once per host, before any rank loads
+                dist.barrier()
+            return _run(args_ns, cfg)
+    n = ranks_asked(cfg.trainer.devices, device_type)
+    if n > 1:
+        if device_type == "cuda":
+            kernels.build()  # once, before the ranks start
+        return dist.spawn(_rank_main, n, argv, device=device_type, backend=backend)
+    return _run(args_ns, cfg)
+
+
+def _rank_main(argv):
+    """:func:`main` in a rank that :func:`dist.spawn` started."""
+    out = main(argv)
+    return None if isinstance(out, Trainer) else out
+
+
+def _run(args_ns, cfg):
+    """The subcommand in this process (a rank, or the one process)."""
+    device = resolve_device(args_ns.device, "run (pass --device cpu for the CPU)")
     set_matmul_precision(cfg.trainer.precision)
     np.random.seed(cfg.seed)
     task, args = build_task(cfg, device)
@@ -167,10 +218,13 @@ def main(argv=None):
     if args_ns.subcommand == "predict":
         path = trainer.predict(ds, os.path.join(cfg.trainer.save_dir, "predictions"),
                                save_obj=bool(args.get("save_result")))
-        print(json.dumps({"predictions": path}))
+        if trainer.is_main:
+            print(json.dumps({"predictions": path}))
         return path
     metrics = trainer.evaluate(ds, mode="test" if args_ns.subcommand == "test" else "val")
-    print(json.dumps({k: round(float(v), 6) for k, v in metrics.items()}, indent=1))
+    if trainer.is_main:
+        print(json.dumps({k: round(float(v), 6) for k, v in metrics.items()},
+                         indent=1))
     return metrics
 
 

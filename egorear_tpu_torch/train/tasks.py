@@ -43,6 +43,7 @@ from egorear_tpu_torch.ops.metrics import (
     pck_3d,
     procrustes_align,
 )
+from egorear_tpu_torch.parallel import dist
 from egorear_tpu_torch.train.imagenet import (
     graft_imagenet_backbones,
     load_imagenet_resnet18,
@@ -110,11 +111,14 @@ def pose_eval_metrics(pred: torch.Tensor, gt: torch.Tensor,
 
 def resolve_device(device, who: str) -> torch.device:
     """``device`` (``cuda`` when None); raises without CUDA, never falls
-    back to the CPU."""
+    back to the CPU. In a data-parallel rank an unnumbered ``cuda`` is the
+    rank's card (the current device, which the group's set-up chose)."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{who}: CUDA is not available; pass device='cpu' "
                            f"to build on the CPU")
+    if device.type == "cuda" and device.index is None and dist.is_initialized():
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 

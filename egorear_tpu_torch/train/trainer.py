@@ -35,13 +35,34 @@ generator on the model's device seeded from ``seed + 1`` and the step count
 ``fold_in(PRNGKey(seed + 1), step)``): deterministic, and a resumed run
 continues the same stream. The bits differ from JAX's threefry.
 
-Not ported: ``remat`` and more than one device (both raise).
+Data-parallel over a process group (:mod:`egorear_tpu_torch.parallel.dist`,
+the JAX package's ``data`` mesh axis): a W-rank step at global batch B is
+the one-process step at B up to reduction order. Each rank runs its B/W
+rows (``batch_size`` is the global batch; W ranks that do not divide it
+shrink to gcd(W, B), the others idle, as the JAX mesh shrinks), BatchNorm
+and dropout act on the global batch (:func:`~egorear_tpu_torch.models.
+layers.data_parallel`), and the gradients, zero-filled, are averaged over
+the ranks in buckets before clipping, so every rank's replica stays
+bitwise the same. The logged loss terms are averaged over the ranks.
+Rank 0 owns ``metrics.csv``, the checkpoints and the profiler trace; the
+others wait for each checkpoint at a barrier. ``evaluate`` gathers the
+per-sample metrics into global order and returns the same dict on every
+rank; ``predict`` runs on rank 0 alone.
+
+``remat`` (the JAX package's ``jax.checkpoint(loss_fn)``) runs the task's
+loss under ``torch.utils.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward. The recompute replays the forward exactly:
+BatchNorm does not update its running stats a second time and dropout
+draws from the generator's state at the forward's start
+(:func:`remat_contexts`), so a step with ``remat`` is the step without.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
+import functools
 import glob
 import os
 import time
@@ -49,8 +70,12 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from egorear_tpu_torch.data.loader import DataLoader
+from egorear_tpu_torch.models.backbone import BatchNorm2d
+from egorear_tpu_torch.models.layers import data_parallel
+from egorear_tpu_torch.parallel import dist
 from egorear_tpu_torch.train import checkpoint as ckpt_lib
 from egorear_tpu_torch.train.optim import (
     clip_by_global_norm_,
@@ -74,8 +99,9 @@ def dropout_seed(seed: int, step: int) -> int:
 @dataclasses.dataclass
 class TrainerConfig:
     """The trainer settings of a config (the JAX package's
-    ``TrainerConfig``, less its TPU mesh knobs). One device only:
-    ``devices`` > 1, ``model_parallel`` > 1 and ``remat`` raise."""
+    ``TrainerConfig``, less its TPU mesh knobs). ``devices`` is the number
+    of data-parallel ranks that ``run.main`` starts (None: one per card,
+    as the JAX package takes every device); ``model_parallel`` > 1 raises."""
 
     max_epochs: int = 12
     check_val_every_n_epoch: int = 1
@@ -85,7 +111,7 @@ class TrainerConfig:
     seed: int = 42
     save_dir: str = "./logs/default"
     ckpt_every_n_epochs: int = 1
-    devices: Optional[int] = None  # None: the one device
+    devices: Optional[int] = None  # None: every card
     model_parallel: int = 1
     profile_steps: int = 0  # torch.profiler trace of the first N steps
     debug_nans: bool = False  # stop at the first non-finite loss
@@ -98,19 +124,20 @@ class TrainerConfig:
         if self.precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got "
                              f"{self.precision!r}")
-        if self.devices is not None and self.devices > 1:
-            raise NotImplementedError(
-                f"devices={self.devices}: data parallelism over several GPUs "
-                f"(DDP) is not ported (ROADMAP Queue A, DDP over NCCL)")
         if self.model_parallel > 1:
             raise NotImplementedError(
                 f"model_parallel={self.model_parallel}: tensor parallelism is "
-                f"not ported (ROADMAP Queue A, DDP over NCCL: the model "
-                f"axis is not queued)")
-        if self.remat:
-            raise NotImplementedError(
-                "remat: activation rematerialisation is not ported (ROADMAP "
-                "Queue A, tools and leftovers)")
+                f"not ported (ROADMAP Queue A, tensor parallelism over the "
+                f"model axis)")
+
+
+class _NullLogger:
+    """The metric sink of ranks other than 0."""
+
+    dir = None
+
+    def log(self, metrics, step, epoch):
+        pass
 
 
 class CSVLogger:
@@ -167,6 +194,36 @@ def _sorted(metrics: dict) -> dict:
     return dict(sorted(metrics.items()))
 
 
+def remat_contexts(model: torch.nn.Module, gen: torch.Generator):
+    """``context_fn`` of the rematerialised loss: the forward records the
+    dropout generator's state; the recompute restores it, so that dropout
+    draws the same masks, and sets every BatchNorm's ``replay``, so that
+    the running stats are updated once (the generator's state after the
+    forward and the flags are restored after it)."""
+    start = {}
+
+    @contextlib.contextmanager
+    def forward():
+        start["gen"] = gen.get_state()
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+        after = gen.get_state()
+        gen.set_state(start["gen"])
+        for m in bns:
+            m.replay = True
+        try:
+            yield
+        finally:
+            for m in bns:
+                del m.replay
+            gen.set_state(after)
+
+    return forward(), recompute()
+
+
 def no_decay_mask_for(task_name: str, encoder_lr_scale: float = 1.0) -> bool:
     """Whether norms and biases are exempt from weight decay: for the
     stage-3 task at ``encoder_lr_scale`` 1 only, as the JAX package's
@@ -196,6 +253,8 @@ class Trainer:
         self.optimizer = None
         self.lr_schedule = None
         self.step = 0
+        # This rank's share of the global batch (the one process: all).
+        self.shard = dist.data_shard(batch_size)
         self._dropout_gen = None
         self.logger = None
         # (epoch, steps, seconds) of each epoch that fit ran.
@@ -226,6 +285,11 @@ class Trainer:
     @property
     def mixed(self) -> bool:
         return self.precision == "bf16-mixed"
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0 (the one process included): metrics, checkpoints, traces."""
+        return dist.is_main()
 
     @property
     def device(self) -> torch.device:
@@ -280,26 +344,46 @@ class Trainer:
         return self._dropout_gen.manual_seed(dropout_seed(self.cfg.seed, self.step))
 
     def train_step(self, batch: dict) -> Dict[str, torch.Tensor]:
-        """One optimizer step on ``batch``; returns the loss terms of this
-        step's forward and the lr it used (0-d tensors, not synchronised)."""
+        """One optimizer step on ``batch`` (data-parallel: this rank's rows
+        of the global batch); returns the loss terms of this step's forward
+        (data-parallel: averaged over the ranks) and the lr it used (0-d
+        tensors, not synchronised)."""
         if self.optimizer is None:
             raise RuntimeError("call init_state(steps_per_epoch) first")
+        if not self.shard.active:
+            raise RuntimeError("this rank is idle: the global batch leaves it "
+                               "no rows")
         model = self.task.model.train()
         named = dict(model.named_parameters())
-        params = None
-        if self.mixed:
-            params = {n: p.to(torch.bfloat16) for n, p in named.items()}
-        loss, metrics = self.task.loss(self._cast(batch), params,
-                                       self.dropout_generator())
+        gen = self.dropout_generator()
+
+        def loss_fn(batch):
+            params = None
+            if self.mixed:
+                params = {n: p.to(torch.bfloat16) for n, p in named.items()}
+            return self.task.loss(self._cast(batch), params, gen)
+
         self.optimizer.zero_grad(set_to_none=True)
-        loss.float().backward()
+        # The backward too: a rematerialised forward runs again inside it.
+        with data_parallel(model, self.shard if self.shard.world > 1 else None):
+            if self.cfg.remat:
+                loss, metrics = checkpoint(
+                    loss_fn, batch, use_reentrant=False,
+                    context_fn=functools.partial(remat_contexts, model, gen))
+            else:
+                loss, metrics = loss_fn(batch)
+            loss.float().backward()
         # A parameter that no path reaches gets grad None, and AdamW would
         # then skip its moments and its weight decay; optax sees a zero grad.
+        # Zero-filled before the average, so every rank reduces the same
+        # buffers (a zero averages to zero).
         grads = []
         for p in named.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
+        if self.shard.collective:
+            dist.all_reduce_mean_(grads, self.shard)
         clip_by_global_norm_(grads, self.gradient_clip_val)
         lr = self.lr_schedule(self.step)
         for group in self.optimizer.param_groups:
@@ -307,6 +391,10 @@ class Trainer:
         self.optimizer.step()
         self.step += 1
         out = {k: v.detach().float() for k, v in metrics.items()}
+        if self.shard.collective:  # the global batch's loss terms
+            terms = torch.stack(list(out.values()))
+            dist.all_reduce_mean_([terms], self.shard)
+            out = dict(zip(out, terms.unbind()))
         out["lr"] = torch.tensor(lr, dtype=torch.float32)
         return out
 
@@ -322,6 +410,11 @@ class Trainer:
     def _loader(self, dataset, **kwargs) -> DataLoader:
         return DataLoader(dataset, self.batch_size, num_workers=self.workers,
                           **kwargs)
+
+    def _barrier(self) -> None:
+        """Wait for the other ranks of the data group."""
+        if self.shard.collective:
+            dist.barrier(self.shard.group)
 
     def _resume_dir(self, resume_dir: Optional[str]) -> Optional[str]:
         """``resume_dir``, or with ``auto_resume`` the newest
@@ -369,11 +462,19 @@ class Trainer:
         ``auto_resume``, of the newest version under ``save_dir``). With
         ``debug_nans`` a non-finite first loss term saves the state to
         ``checkpoints-nan`` and raises ``FloatingPointError``.
+
+        Data-parallel, rank 0 writes the metrics, checkpoints and trace,
+        and the data group meets at a barrier after each checkpoint; a rank
+        that the batch leaves idle returns at once.
         """
         cfg = self.cfg
-        self.logger = self.logger or CSVLogger(cfg.save_dir)
+        if not self.shard.active:
+            return self
+        self.logger = self.logger or (CSVLogger(cfg.save_dir) if self.is_main
+                                      else _NullLogger())
         loader = self._loader(train_dataset, shuffle=True, drop_last=True,
-                              seed=cfg.seed, device=self.device)
+                              seed=cfg.seed, device=self.device,
+                              shard=self.shard)
         steps_per_epoch = len(loader)
         if steps_per_epoch == 0:
             raise ValueError("train dataset smaller than one batch")
@@ -390,7 +491,7 @@ class Trainer:
                 start_epoch = epoch0 + 1
                 logger.info(f"resumed from epoch {epoch0}")
 
-        prof = self._profiler()
+        prof = self._profiler() if self.is_main else None
         profile_left = cfg.profile_steps
         for epoch in range(start_epoch, cfg.max_epochs):
             loader.set_epoch(epoch)
@@ -408,8 +509,11 @@ class Trainer:
                 if cfg.debug_nans:
                     first_loss = next(iter(metrics.values()))
                     if not bool(torch.isfinite(first_loss)):
-                        ckpt_lib.save(os.path.join(self.logger.dir, "checkpoints-nan"),
-                                      epoch, self.state_dict())
+                        if self.is_main:
+                            ckpt_lib.save(os.path.join(self.logger.dir,
+                                                       "checkpoints-nan"),
+                                          epoch, self.state_dict())
+                        self._barrier()
                         raise FloatingPointError(
                             f"non-finite loss at step {self.step}; state saved")
                 if self.step % cfg.log_every_n_steps == 0:
@@ -419,21 +523,25 @@ class Trainer:
                 torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             self.epoch_times.append((epoch, steps, dt))
-            logger.info(f"epoch {epoch} done in {dt:.1f}s "
-                        f"({steps / max(dt, 1e-9):.2f} it/s)")
+            if self.is_main:
+                logger.info(f"epoch {epoch} done in {dt:.1f}s "
+                            f"({steps / max(dt, 1e-9):.2f} it/s)")
             if running:
                 self._log_train(running, epoch, quiet=True)
 
             if val_dataset is not None and (epoch + 1) % cfg.check_val_every_n_epoch == 0:
-                val_metrics = self.evaluate(val_dataset, mode="val")
+                val_metrics = self._evaluate(val_dataset, mode="val")
                 self.logger.log(val_metrics, self.step, epoch)
-                logger.info(f"epoch {epoch} val: " + " ".join(
-                    f"{k}={v:.4f}" for k, v in list(val_metrics.items())[:8]))
+                if self.is_main:
+                    logger.info(f"epoch {epoch} val: " + " ".join(
+                        f"{k}={v:.4f}" for k, v in list(val_metrics.items())[:8]))
 
             if ((epoch + 1) % cfg.ckpt_every_n_epochs == 0
                     or epoch == cfg.max_epochs - 1):
-                ckpt_lib.save(os.path.join(self.logger.dir, "checkpoints"), epoch,
-                              self.state_dict())
+                if self.is_main:
+                    ckpt_lib.save(os.path.join(self.logger.dir, "checkpoints"),
+                                  epoch, self.state_dict())
+                self._barrier()
         if prof is not None:  # fewer steps than profile_steps
             self._stop_profiler(prof)
         return self
@@ -443,7 +551,7 @@ class Trainer:
         values = {k: float(v) for k, v in metrics.items()}
         self.logger.log({f"train/{k}": v for k, v in values.items()},
                         self.step, epoch)
-        if not quiet:
+        if not quiet and self.is_main:
             logger.info(f"epoch {epoch} step {self.step}: "
                         + " ".join(f"{k}={v:.4f}" for k, v in values.items()))
 
@@ -452,15 +560,37 @@ class Trainer:
         ``{mode}/{k}``. The last batch is padded to the batch size by
         repeating its last sample (static shapes, as the JAX package); only
         its first ``__valid_n__`` samples count. ``mode == "test"`` turns on
-        the task's test-mode metrics."""
+        the task's test-mode metrics. Data-parallel, each rank evaluates its
+        rows, the per-sample metrics are gathered into the global batch's
+        order, and every rank returns the same dict (an idle rank gets rank
+        0's)."""
+        metrics = self._evaluate(dataset, mode) if self.shard.active else None
+        if self.shard.world < dist.world_size():
+            metrics = dist.broadcast_object(metrics)
+        return metrics
+
+    def _gather(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The per-sample metrics of the global batch, in its order, from
+        every rank's rows (a 0-d metric counts as the same value for each of
+        this rank's rows)."""
+        n = max(v.shape[0] for v in metrics.values() if v.ndim)
+        rows = torch.stack([v.float().expand(n) if v.ndim == 0 else v.float()
+                            for v in metrics.values()])
+        every = dist.gather(rows, self.shard)  # (world, metrics, n)
+        return dict(zip(metrics, every.transpose(0, 1).reshape(len(metrics), -1)))
+
+    def _evaluate(self, dataset, mode: str) -> Dict[str, float]:
         loader = self._loader(dataset, shuffle=False, drop_last=False,
-                              pad_last=True, device=self.device)
+                              pad_last=True, device=self.device,
+                              shard=self.shard)
         sums: Dict[str, float] = {}
         count = 0
         for batch in loader:
             n = batch["__valid_n__"]
             metrics = _sorted(self.eval_step(_array_batch(batch),
                                              test_mode=mode == "test"))
+            if self.shard.collective:
+                metrics = self._gather(metrics)
             for k, v in metrics.items():
                 v = v.float().cpu().numpy()
                 if v.ndim == 0:  # a scalar: weighted by the true count
@@ -476,7 +606,11 @@ class Trainer:
         ``proposal`` poses; the heatmap stages: heatmaps and decoded 2D
         anchors) with the samples' ``frame_path``. The last batch is padded
         to the batch size and cut back. With ``save_obj`` each ``final``
-        pose is also written as a skeleton mesh ``pose_<i>.obj``."""
+        pose is also written as a skeleton mesh ``pose_<i>.obj``.
+        Data-parallel, rank 0 predicts the whole dataset and writes; the
+        other ranks return None at once."""
+        if not self.is_main:
+            return None
         loader = self._loader(dataset, shuffle=False, drop_last=False)
         os.makedirs(out_dir, exist_ok=True)
         collected: Dict[str, list] = {}

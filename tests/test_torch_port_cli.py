@@ -163,10 +163,12 @@ def test_overrides_cli_keys_and_refusals():
         assert cfg.trainer.encoder_lr_scale == scale
     with pytest.raises(ValueError, match="TPU-only"):
         load_config(_yaml(STAGE1), ["--trainer.tp_min_dim", "4"])
-    for bad in (["--trainer.remat", "true"], ["--trainer.devices", "2"],
-                ["--trainer.model_parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            load_config(_yaml(STAGE1), bad)
+    # Data parallelism and remat are ported; the model axis is refused.
+    taken = load_config(_yaml(STAGE1), ["--trainer.remat", "true",
+                                        "--trainer.devices", "2"])
+    assert taken.trainer.remat is True and taken.trainer.devices == 2
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_config(_yaml(STAGE1), ["--trainer.model_parallel", "2"])
     with pytest.raises(ValueError):
         load_config(_yaml(STAGE1), ["--trainer.precision", "16-mixed"])
     with pytest.raises(ValueError):
@@ -431,8 +433,9 @@ def test_ckpt_import_and_cuda_refused(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="shape mismatch conv_heatmap.bias"):
         run.load_eval_ckpt(task, types.SimpleNamespace(task_name="heatmap"), ckpt)
     assert all(torch.equal(v, before[k]) for k, v in task.model.state_dict().items())
+    assert TrainerConfig(remat=True, devices=2).remat
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainerConfig(remat=True)
+        TrainerConfig(model_parallel=2)
     if not torch.cuda.is_available():  # the module's own entry, as users run it
         out = subprocess.run(
             [sys.executable, "-m", "egorear_tpu_torch.run", "test", "--config",
