@@ -166,7 +166,7 @@ Data-parallel training (``egorear_tpu_torch.parallel``, the JAX package's
      NOISE_FACTOR times how far ulp noise on the parameters moves the one
      process's own gradient, where that is larger), parameters within
      AdamW's bound, BN running stats within TRAIN_STAT_TOL, the ranks'
-     states bitwise equal after three steps, 4 + 4 and 7 + 7 launches a rank
+     states bitwise equal after two steps, 4 + 4 and 7 + 7 launches a rank
      and step, samples/s of both (not a speed result on one card); b: the
      stage-2 yaml through the CLI on phase 12's tree: ``--trainer.devices
      2`` refused over NCCL on one card, ``fit`` as rank 0 of a one-rank
@@ -178,6 +178,29 @@ Data-parallel training (``egorear_tpu_torch.parallel``, the JAX package's
      b32 fp32 stage-3 step with ``remat`` and one without, held to each
      other as phase 5's, the forward kernels launched twice with ``remat``,
      both peaks.
+
+Tensor parallelism over the model axis (``--trainer.model_parallel``,
+``egorear_tpu_torch.parallel.tensor``; ranks share the one card over gloo,
+so these are checks and memory, not speed across cards):
+
+  17. a: stage 3 b32 fp32 at the default ``tp_min_dim`` 2048 on a (1 data x
+     2 model) grid against phase 16a's one-process step from the same state
+     on the same batch (held by 16a's rule, the anchors pinned): the sharded
+     leaves with their axes, three steps with 7 + 7 launches a rank and
+     step (the first step's launches kept and held against their plain
+     versions as the kept-call phases), the replicated leaves bitwise equal
+     across the model group, the peaks, and one bf16-mixed step's loss terms
+     within TP_BF16_TOL of one process's; b: stage 2 b64 fp32 at
+     ``tp_min_dim`` 256 (row- and column-parallel and gathered leaves) on a
+     (2 x 2) grid of four ranks against 16a's stage-2 step; c: the stage-3
+     yaml through the CLI on phase 12's tree with ``--trainer.devices 2
+     --trainer.model_parallel 2``: refused over NCCL on one card; ``fit``
+     (2 steps at b64, grafted from phase 12's stage 2), ``validate`` and
+     ``predict`` in a two-rank gloo group, the last two within TP_EVAL_TOL
+     of one process from the same checkpoint, which loads into one process
+     with the same keys and shapes, bitwise the ranks' gathered state; d:
+     the 512-channel head, one b2 fp32 step at M = 2, its build time and
+     per-rank peak beside phase 15b's one-process step.
 
 Every phase that drives the main path sets the launch counts of all four
 kernels to 0 just before it and reads them just after.
@@ -1366,7 +1389,8 @@ def compare_kernel_step(model, trainer, batch, start, want_launches):
     gradient against TRAIN_GRAD_TOL of its scale (a leaf below the rounding
     floor against the floor), the parameters against AdamW's bound and the
     BN running stats against TRAIN_STAT_TOL. Returns both runs and the
-    worst numbers."""
+    worst numbers, and the kernel step's peak device memory less the plain
+    run's copies that it holds (``step_peak``, bytes)."""
     runs, masks, flips = {}, [], []
     for impl in ("plain", "kernel"):
         for m in deform_attns(model):
@@ -1374,6 +1398,11 @@ def compare_kernel_step(model, trainer, batch, start, want_launches):
         model.load_state_dict(start)
         trainer.init_state(steps_per_epoch=1)
         reset_launches()
+        if impl == "kernel" and torch.cuda.is_available():
+            import gc
+
+            gc.collect()  # the plain step's optimizer state, if a cycle holds it
+            torch.cuda.reset_peak_memory_stats()
         with pinned_relus(masks, flips if impl == "kernel" else None):
             metrics = trainer.train_step(batch)
         torch.cuda.synchronize()
@@ -1397,8 +1426,12 @@ def compare_kernel_step(model, trainer, batch, start, want_launches):
         raise AssertionError(f"a ReLU input {kink:.3e} of its call's scale from "
                              f"zero changed sides (tol {FWD_TOL[torch.float32]:g})")
     k, pl = runs["kernel"], runs["plain"]
+    held = sum(t.numel() * t.element_size() for part in ("grads", "params", "stats")
+               for t in pl[part].values() if t.is_cuda)
+    step_peak = (torch.cuda.max_memory_allocated() - held
+                 if torch.cuda.is_available() else 0)
     return dict(kernel=k, plain=pl, flips=flips, masks=masks, kink=kink,
-                **hold_step(k, pl))
+                step_peak=step_peak, **hold_step(k, pl))
 
 
 def hold_step(got: dict, want: dict, noise: dict | None = None) -> dict:
@@ -1553,12 +1586,17 @@ def check_train_step(card, task, trainer, lazy: bool, name: str, tag: str,
     anchors = partly_valid(shares) + (f" (seed {seed})" if seed != 4 else "")
     r = compare_kernel_step(task.model, trainer, batch, start,
                             expected_launches(lazy, 1, 1, task.cfg))
+    STEP_PEAKS[(name, lazy)] = r["step_peak"]
     print(f"{tag} {name} {TRAIN_SIZE}px B={TRAIN_BATCH} fp32 "
           f"{'lazy' if lazy else 'reference'} order"
           f"{f', dropout {dropout:g},' if dropout else ''} train step kernel vs "
           f"plain: {kernel_step_text(r, lazy)}; valid anchors {anchors} | {card}",
           flush=True)
 
+
+# {(model name, lazy order): bytes} of check_train_step's kernel steps:
+# phase 17d sets the sharded 512-channel head's step beside phase 15b's.
+STEP_PEAKS: dict = {}
 
 # The launch function behind each kernel's wrapper in
 # egorear_tpu_torch.ops.deform_attn (the autograd nodes look it up at every
@@ -2979,7 +3017,7 @@ def phase_branches(card, model_locs, workdir: str, cli: dict) -> dict:
 # ``egorear_tpu_torch.parallel``) and ``remat``. One card holds both ranks
 # of 16a over gloo (NCCL needs a card per rank, and refuses otherwise).
 DP_RANKS = 2
-DP_TIMED = 2  # timed steps after the checked first one, on each side
+DP_TIMED = 1  # timed steps after the checked first one, on each side
 DP_EVAL_TOL = 1e-5  # validate: two ranks vs one process, each metric
 
 
@@ -3004,28 +3042,34 @@ def _peak_gib() -> float:
             if torch.cuda.is_available() else 0.0)
 
 
-def state_hash(model) -> str:
-    """sha256 of every parameter's and buffer's bytes, in key order."""
+def state_hash(model, keep=lambda key: True) -> str:
+    """sha256 of the bytes of every parameter and buffer whose key ``keep``
+    takes, in key order; ``model`` may also be a state dict."""
     import hashlib
 
     h = hashlib.sha256()
-    for k, v in model.state_dict().items():
-        h.update(k.encode())
-        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    sd = model if isinstance(model, dict) else model.state_dict()
+    for k, v in sd.items():
+        if keep(k):
+            h.update(k.encode())
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
     return h.hexdigest()
 
 
-def dp_task(stage: str):
+def dp_task(stage: str, parallel: dict | None = None):
     """Stage 2 or the stage-3 cascade at the yamls' width and depth, fp32,
     lazy order, lr warmed over one step (so that AdamW's first step moves
-    the parameters), no ImageNet (the start state is loaded)."""
+    the parameters), no ImageNet (the start state is loaded); ``parallel``
+    shards it over the model axis (``entry.build_train``'s)."""
     from egorear_tpu_torch import entry
 
     if stage == "stage2":
         return entry.build_stage2((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE, seed=0,
-                                  steps_per_epoch=1, warmup_iters=1, imagenet=False)
+                                  steps_per_epoch=1, warmup_iters=1, imagenet=False,
+                                  parallel=parallel)
     return entry.build_train((TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE, "32", seed=0,
-                             steps_per_epoch=1, warmup_iters=1, imagenet=False)
+                             steps_per_epoch=1, warmup_iters=1, imagenet=False,
+                             parallel=parallel)
 
 
 def dp_batch(stage: str, gen) -> dict:
@@ -3157,7 +3201,9 @@ def phase_data_parallel(card, workdir: str) -> dict:
     bitwise equal after
     1 + DP_TIMED steps, each rank's launches exact. Every stage is checked
     before any failure is raised. Returns the ranks' launch counts,
-    summed."""
+    summed, and each stage's one-process reference (start state, batch
+    seed, recorded anchors, first step, noise, peak), which phase 17 holds
+    its ranks to."""
     from egorear_tpu_torch.parallel import dist
 
     t0 = time.perf_counter()
@@ -3259,7 +3305,10 @@ def phase_data_parallel(card, workdir: str) -> dict:
           flush=True)
     if failed:
         raise AssertionError("[16a] " + " | ".join(failed))
-    return total
+    refs = {stage: dict(start=start, seed=seed, anchors=anchors, first=one[stage]["first"],
+                        noise=noise[stage], peak=one[stage]["peak"])
+            for stage, (start, seed, _, anchors) in spec["stages"].items()}
+    return total, refs
 
 
 def cli_rank(argv: list) -> dict:
@@ -3455,6 +3504,426 @@ def phase_remat(card) -> dict:
           f" | {card}", flush=True)
     return total
 
+# Phase 17: tensor parallelism over the model axis (the JAX package's
+# ``model`` mesh axis; ``egorear_tpu_torch.parallel.tensor``). Both groups
+# share the one card over gloo.
+TP_M = 2  # the model axis of every part
+TP_GRID_B = (2, 2)  # 17b: (data, model)
+TP_MIN_DIM_B = 256  # 17b: row-, column-parallel and gathered leaves at full width
+TP_STEPS = 3  # 17a, 17b: the checked first step and two more
+TP_BF16_TOL = 1e-2  # 17a: a bf16-mixed step's loss terms, relative
+TP_EVAL_TOL = 1e-6  # 17c: validate and predict, over max(1, |value|)
+TP_CLI_B = 64  # 17c: 2 steps on phase 12's 128 frames
+
+
+def replica_hashes(model) -> tuple:
+    """(hash of the replicated entries, hash of the slices) of a rank's
+    state dict."""
+    from egorear_tpu_torch.parallel import tensor
+
+    dims = tensor.placements(model)
+    return (state_hash(model, lambda k: k not in dims),
+            state_hash(model, lambda k: k in dims))
+
+
+def gathered_step(trainer) -> dict:
+    """The last step's gradients, parameters and BN running stats on the
+    host, the sharded leaves gathered whole (a collective of the model
+    group)."""
+    from egorear_tpu_torch.parallel import dist, tensor
+
+    model = trainer.task.model
+    dims = tensor.placements(model)
+    grads = {n: (dist.model_all_gather(p.grad, dims[n], trainer.shard) if n in dims
+                 else p.grad).to("cpu", copy=True) for n, p in model.named_parameters()}
+    sd = tensor.full_state_dict(model)
+    return dict(grads=grads,
+                params={n: sd[n].to("cpu", copy=True) for n in grads},
+                stats={k: v.to("cpu", copy=True) for k, v in sd.items() if "running" in k})
+
+
+def tp_steps(trainer, batch, anchors, rows, kept: bool, tag: str, card: str) -> dict:
+    """A rank's TP_STEPS steps: the first with the anchors pinned to the
+    one process's ``rows`` (and, with ``kept``, every launch kept and held
+    against its plain version), gathered; then the rest, timed, the peak
+    over them. The launch counts over all of them and the final hashes."""
+    flips, calls = [], []
+    reset_launches()
+    with pinned_anchors(anchors, rows, flips), (
+            kept_kernel_calls(calls) if kept else contextlib.nullcontext()):
+        lr = float(trainer.train_step(batch)["lr"])
+    first = dict(lr=lr, **gathered_step(trainer))
+    if kept:
+        hold_kept_calls(calls, tag, card)
+    del calls
+    _sync()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TP_STEPS - 1):
+        trainer.train_step(batch)
+    _sync()
+    ms = (time.perf_counter() - t0) / (TP_STEPS - 1) * 1e3
+    return dict(first=first, flips=flips, ms=ms, peak=_peak_gib(),
+                launched=read_launches(), hashes=replica_hashes(trainer.task.model))
+
+
+def tp_stage_rank(part: dict, card: str) -> dict:
+    """17a or 17b in a rank: the stage sharded by ``part["parallel"]``,
+    16a's start state and batch, :func:`tp_steps`; 17a also one bf16-mixed
+    step from the start state. Rank 0 writes its gathered first step to
+    ``part["out"]`` and returns the sharded leaves' axes and full shapes."""
+    from egorear_tpu_torch.parallel import dist, tensor
+
+    stage, ref = part["stage"], part["ref"]
+    task, trainer = dp_task(stage, part["parallel"])
+    start = torch.load(ref["start"], map_location=TRAIN_DEVICE, weights_only=True)
+    tensor.load_full_state_dict(task.model, start)
+    batch = dp_batch(stage, torch.Generator(device=TRAIN_DEVICE).manual_seed(ref["seed"]))
+    rows = trainer.shard.rows(batch["img"].shape[0])
+    batch = {k: v[rows] for k, v in batch.items()}
+    anchors = torch.load(ref["anchors"], map_location=TRAIN_DEVICE, weights_only=True)
+    out = tp_steps(trainer, batch, anchors, rows, part["kept"], part["tag"], card)
+    first = out.pop("first")
+    if dist.rank() == 0:
+        torch.save(first, part["out"])
+    del first
+    out["grid"] = (trainer.shard.rank, trainer.shard.world, trainer.shard.model_rank)
+    dims = tensor.placements(task.model)
+    out["placements"] = {k: (d, tuple(start[k].shape)) for k, d in dims.items()}
+    if part.get("bf16"):
+        tensor.load_full_state_dict(task.model, start)
+        trainer.init_state(steps_per_epoch=1)
+        trainer.cfg.precision = "bf16-mixed"
+        reset_launches()
+        out["bf16"] = {k: float(v) for k, v in trainer.train_step(batch).items()}
+        _sync()
+        out["bf16_launched"] = read_launches()
+    return out
+
+
+def tp_cli_rank(argvs: list) -> list:
+    """17c in a rank: each ``run.main(argv)`` in the group, with the launch
+    counts from 0 over it, an argument ``{ckpt}`` replaced by the last
+    ``fit``'s ``epoch=0.pt`` (rank 0's, broadcast): a ``fit`` returns its
+    steps, rank 0's version directory and the hash of the gathered state;
+    ``validate`` its metrics; ``predict`` rank 0's path."""
+    from egorear_tpu_torch import run
+    from egorear_tpu_torch.parallel import dist, tensor
+    from egorear_tpu_torch.train.trainer import Trainer
+
+    out, ckpt = [], None
+    for argv in argvs:
+        reset_launches()
+        result = run.main([ckpt if a == "{ckpt}" else a for a in argv])
+        _sync()
+        r = dict(launched=read_launches())
+        if isinstance(result, Trainer):
+            r.update(steps=result.epoch_times[0][1], log_dir=result.logger.dir,
+                     hash=state_hash(tensor.full_state_dict(result.task.model)))
+            ckpt = dist.broadcast_object(None if r["log_dir"] is None else os.path.join(
+                r["log_dir"], "checkpoints", "epoch=0.pt"))
+        else:
+            r["result"] = result
+        out.append(r)
+    return out
+
+
+def tp_head512_rank(card: str) -> dict:
+    """17d in a rank: the 512-channel head built (the full seeded model,
+    then this rank's slices) and one b2 fp32 step at M = TP_M: the build's
+    seconds, the step's peak and launches, the loss."""
+    from egorear_tpu_torch import entry
+    from egorear_tpu_torch.parallel import tensor
+
+    t0 = time.perf_counter()
+    task, trainer = entry.build_train(
+        (TRAIN_SIZE, TRAIN_SIZE), TRAIN_DEVICE, "32", seed=0, steps_per_epoch=1,
+        warmup_iters=1, imagenet=False, overrides=branch_overrides("head512"),
+        parallel=dict(model_parallel=TP_M))
+    _sync()
+    build = time.perf_counter() - t0
+    batch = train_batch(TRAIN_BATCH, TRAIN_SIZE,
+                        torch.Generator(device=TRAIN_DEVICE).manual_seed(19))
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss = float(trainer.train_step(batch)["loss_total"])
+    _sync()
+    dims = tensor.placements(task.model)
+    w = task.model.pose3d_estimator.mlp_pred_0._parameters["weight"]
+    return dict(build=build, peak=_peak_gib(), launched=read_launches(), loss=loss,
+                slice=tuple(w.shape), dim=dims.get("pose3d_estimator.mlp_pred_0.weight"),
+                expected=expected_launches(True, 1, 1, task.cfg))
+
+
+def tp_rank(spec: dict) -> dict:
+    """A rank of phase 17's groups: the parts ``spec["parts"]`` names, in
+    order; ranks other than 0 print nothing."""
+    import io
+
+    from egorear_tpu_torch.parallel import dist
+
+    globals().update(spec["globals"])  # the parent's settings (a rehearsal's)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    quiet = (contextlib.redirect_stdout(io.StringIO()) if dist.rank()
+             else contextlib.nullcontext())
+    with quiet:
+        for name, part in spec["parts"].items():
+            if name == "17c":
+                out[name] = tp_cli_rank(part)
+            elif name == "17d":
+                out[name] = tp_head512_rank(spec["card"])
+            else:
+                out[name] = tp_stage_rank(part, spec["card"])
+    return out
+
+
+def hold_tp_stage(tag: str, stage: str, B: int, grid: tuple, ranks: list,
+                  ref: dict, path: str, card: str, failed: list) -> dict:
+    """17a/17b in the parent: every rank's launches exact, its grid place,
+    the replicated leaves bitwise equal on every rank and each slice equal
+    across its data group, rank 0's gathered first step held to the one
+    process's by 16a's rule; prints the sharded leaves and the peaks.
+    Appends failures to ``failed``; returns the launch counts, summed."""
+    D, M = grid
+    want = dp_launches(stage, TP_STEPS)
+    total = dict.fromkeys(KERNELS, 0)
+    for i, r in enumerate(ranks):
+        if r["launched"] != want:
+            failed.append(f"{tag} rank {i} launched {r['launched']}, expected {want}")
+        if r["grid"] != (i // M, D, i % M):
+            failed.append(f"{tag} rank {i} at {r['grid']}, expected ({i // M}, {D}, {i % M})")
+        for k, v in r["launched"].items():
+            total[k] += v
+    if len({r["hashes"][0] for r in ranks}) != 1:
+        failed.append(f"{tag} the replicated leaves differ between ranks after "
+                      f"{TP_STEPS} steps")
+    if any(len({ranks[d * M + m]["hashes"][1] for d in range(D)}) != 1
+           for m in range(M)) or len({ranks[m]["hashes"][1] for m in range(M)}) != M:
+        failed.append(f"{tag} the slices are not the same across each data group "
+                      f"and different across the model group")
+    shards = ", ".join(f"{k} {tuple(shape)} dim {d}"
+                       for k, (d, shape) in sorted(ranks[0]["placements"].items()))
+    n = len(ranks[0]["placements"])
+    print(f"{tag} {stage} {TRAIN_SIZE}px B={B} fp32 on a {D} x {M} (data x model) grid "
+          f"of {D * M} ranks sharing one card over gloo: {n} sharded leaves"
+          + (f": {shards}" if n <= 16 else f" (first 12: "
+             + ", ".join(shards.split(", ")[:12]) + ")")
+          + f" | {card}", flush=True)
+    rank0 = torch.load(path, weights_only=True)
+    try:
+        r = hold_step(rank0, ref["first"], ref["noise"])
+    except AssertionError as e:
+        failed.append(f"{tag} {stage}: {e}")
+        return total
+    print(f"{tag} {stage} B={B}, {D} x {M} ranks vs one process (phase 16a's, the same "
+          f"state and batch): worst leaf gradient max-abs/scale {r['worst_grad']:.3e} "
+          f"({r['worst_name']}, tol {TRAIN_GRAD_TOL:g}; {r['n_floor']} leaves below the "
+          f"floor {r['floor']:.1e}; {r['n_noise']} held at {NOISE_FACTOR:g}x their move "
+          f"under {NOISE_ULPS}-ulp noise); params {r['worst_tight']:.3e} where the "
+          f"gradient is determined, {r['worst_loose']:.3e} elsewhere (Adam bound 2 lr "
+          f"= {2 * ref['first']['lr']:.1e}); BN running stats {r['stat_err']:.3e} (tol "
+          f"{TRAIN_STAT_TOL:g}); anchor elements pinned that differed "
+          f"{[x['flips'] for x in ranks]}; replicated leaves bitwise equal on all "
+          f"{D * M} ranks after {TP_STEPS} steps, slices equal across each data group; "
+          f"launches a rank lazy_deform_sample {want['lazy_deform_sample']}, "
+          f"lazy_deform_sample_bwd {want['lazy_deform_sample_bwd']} = {TP_STEPS} steps "
+          f"x {want['lazy_deform_sample'] // TP_STEPS} at kernel batch "
+          f"{4 * B // D}; peak {max(x['peak'] for x in ranks):.2f} GiB a rank "
+          f"(steps 2-{TP_STEPS}) vs {ref['peak']:.2f} GiB in one process (16a); "
+          f"{max(x['ms'] for x in ranks):.1f} ms/step, host clock, not a speed "
+          f"result | {card}", flush=True)
+    return total
+
+
+def phase_tensor_parallel(card, workdir: str, cli: dict, refs: dict) -> dict:
+    """Phase 17 (see the module's docstring): the NCCL refusal and the
+    one-process bf16 step here, then a two-rank group (17a, 17c's three
+    runs, 17d) and a four-rank group (17b), then each part held to its
+    one-process reference. Every part is checked before any failure is
+    raised. Returns the ranks' launch counts, summed."""
+    from egorear_tpu_torch import run
+    from egorear_tpu_torch.config.loader import load_config
+    from egorear_tpu_torch.parallel import dist
+
+    t0 = time.perf_counter()
+    failed = []
+    yaml_path = os.path.join(CONFIGS, "ego4view_syn_pose3d.yaml")
+    base = ["--config", yaml_path, "--model.data_root", cli["root"],
+            "--device", TRAIN_DEVICE] + CLI_OVERRIDES + ["--model.batch_size",
+                                                          str(TP_CLI_B)]
+    tp_flags = ["--trainer.devices", str(TP_M), "--trainer.model_parallel", str(TP_M)]
+    fit = (["fit"] + base + ["--model.heatmap_estimator_mvf_pretrained", cli["stage2"],
+                             "--trainer.max_epochs", "1", "--trainer.save_dir",
+                             os.path.join(workdir, "cli_tp", "fit")] + tp_flags)
+    refused = ""
+    if TRAIN_DEVICE == "cuda" and torch.cuda.device_count() < TP_M:
+        try:
+            run.main(fit)
+        except ValueError as e:
+            if "NCCL needs one CUDA card per rank" not in str(e):
+                raise
+            refused = str(e).split(".")[0]
+        else:
+            raise AssertionError("[17c] NCCL took two ranks on one card")
+
+    # 17a's one-process bf16-mixed step from 16a's start state.
+    task, trainer = dp_task("stage3")
+    start = torch.load(refs["stage3"]["start"], map_location=TRAIN_DEVICE,
+                       weights_only=True)
+    task.model.load_state_dict(start)
+    trainer.cfg.precision = "bf16-mixed"
+    batch = dp_batch("stage3", torch.Generator(device=TRAIN_DEVICE).manual_seed(
+        refs["stage3"]["seed"]))
+    one_bf16 = {k: float(v) for k, v in trainer.train_step(batch).items()}
+    del task, trainer, batch, start
+    _release_cache()
+
+    paths = {t: os.path.join(workdir, f"tp_{t}_rank0.pt") for t in ("17a", "17b")}
+    settings = {k: globals()[k] for k in (
+        "TRAIN_DEVICE", "TRAIN_SIZE", "STAGE_B", "STAGE3_B", "LAUNCHES_PER_LAYER",
+        "TRAIN_BATCH", "CLI_OVERRIDES")}
+    part_a = dict(stage="stage3", ref={k: refs["stage3"][k] for k in
+                                       ("start", "seed", "anchors")},
+                  parallel=dict(model_parallel=TP_M), kept=True, bf16=True,
+                  tag="[17a]", out=paths["17a"])
+    val = ["validate"] + base + tp_flags + ["--ckpt_path", "{ckpt}"]
+    pred = ["predict"] + base + tp_flags + ["--ckpt_path", "{ckpt}", "--trainer.save_dir",
+                                            os.path.join(workdir, "cli_tp", "predict")]
+    t1 = time.perf_counter()
+    two = dist.spawn(tp_rank, TP_M, dict(globals=settings, card=card, parts={
+        "17a": part_a, "17c": [fit, val, pred], "17d": None}),
+        device=TRAIN_DEVICE, backend="gloo")
+    t_two = time.perf_counter() - t1
+    D, M = TP_GRID_B
+    part_b = dict(stage="stage2", ref={k: refs["stage2"][k] for k in
+                                       ("start", "seed", "anchors")},
+                  parallel=dict(model_parallel=M, tp_min_dim=TP_MIN_DIM_B), kept=False,
+                  tag="[17b]", out=paths["17b"])
+    t1 = time.perf_counter()
+    four = dist.spawn(tp_rank, D * M, dict(globals=settings, card=card,
+                                           parts={"17b": part_b}),
+                      device=TRAIN_DEVICE, backend="gloo")
+    t_four = time.perf_counter() - t1
+
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(launched):
+        for k, v in launched.items():
+            total[k] += v
+
+    # 17a
+    ranks_a = [r["17a"] for r in two]
+    add(hold_tp_stage("[17a]", "stage3", STAGE3_B, (1, TP_M), ranks_a, refs["stage3"],
+                      paths["17a"], card, failed))
+    want1 = expected_launches(True, 1, 1)
+    worst = max(abs(ranks_a[0]["bf16"][k] - v) / abs(v) for k, v in one_bf16.items()
+                if k != "lr")
+    for r in ranks_a:
+        add(r["bf16_launched"])
+        if r["bf16_launched"] != want1:
+            failed.append(f"[17a] bf16 step launched {r['bf16_launched']}, expected {want1}")
+    if not worst <= TP_BF16_TOL or ranks_a[0]["bf16"] != ranks_a[1]["bf16"]:
+        failed.append(f"[17a] bf16-mixed loss terms {worst:.3e} from one process's "
+                      f"(tol {TP_BF16_TOL:g}), or different between the ranks")
+    print(f"[17a] one bf16-mixed step from the same state: loss terms within "
+          f"{worst:.3e} of one process's, relative (tol {TP_BF16_TOL:g}), the same on "
+          f"both ranks; loss_total {ranks_a[0]['bf16']['loss_total']:.6f} vs "
+          f"{one_bf16['loss_total']:.6f} | {card}", flush=True)
+
+    # 17b
+    add(hold_tp_stage("[17b]", "stage2", STAGE_B, TP_GRID_B, [r["17b"] for r in four],
+                      refs["stage2"], paths["17b"], card, failed))
+
+    # 17c
+    fit_r, val_r, pred_r = zip(*[r["17c"] for r in two])
+    steps = CLI_TRAIN_FRAMES // TP_CLI_B
+    n_eval = -(-CLI_EVAL_FRAMES // TP_CLI_B)
+    per = launches_per_forward()
+    for got, want in ((fit_r, cli_launches(steps + 1, steps, per)),
+                      (val_r, cli_launches(n_eval, 0, per)),
+                      (pred_r, cli_launches(n_eval, 0, per))):
+        for r in got:
+            add(r["launched"])
+            if r["launched"] != want:
+                failed.append(f"[17c] a rank launched {r['launched']}, expected {want}")
+    ckpt = os.path.join(fit_r[0]["log_dir"], "checkpoints", "epoch=0.pt")
+    if (any(r["steps"] != steps for r in fit_r) or len({r["hash"] for r in fit_r}) != 1
+            or fit_r[1]["log_dir"] is not None or not os.path.exists(ckpt)):
+        failed.append(f"[17c] fit: steps {[r['steps'] for r in fit_r]} (expected "
+                      f"{steps}), log dirs {[r['log_dir'] for r in fit_r]}")
+    one_val, launched, _ = cli_run(["validate"] + base + ["--ckpt_path", ckpt])
+    add(launched)
+    val_got = [r["result"] for r in val_r]
+    val_err = max(abs(val_got[0][k] - v) / max(1.0, abs(v)) for k, v in one_val.items())
+    if val_got[0] != val_got[1] or sorted(one_val) != sorted(val_got[0]) or not (
+            val_err <= TP_EVAL_TOL):
+        failed.append(f"[17c] validate on {TP_M} ranks vs one process: {val_err:.3e} "
+                      f"(tol {TP_EVAL_TOL:g})")
+    one_pred, launched, _ = cli_run(["predict"] + base + ["--ckpt_path", ckpt,
+                                    "--trainer.save_dir", os.path.join(
+                                        workdir, "cli_tp", "predict_one")])
+    add(launched)
+    import numpy as np
+
+    got_p, want_p = np.load(pred_r[0]["result"], allow_pickle=True), np.load(
+        one_pred, allow_pickle=True)
+    pred_err = max(float(np.abs(got_p[k] - want_p[k]).max())
+                   / max(1.0, float(np.abs(want_p[k]).max())) for k in ("final", "proposal"))
+    if (pred_r[1]["result"] is not None or list(got_p["frame_path"])
+            != list(want_p["frame_path"]) or not pred_err <= TP_EVAL_TOL):
+        failed.append(f"[17c] predict on {TP_M} ranks vs one process: {pred_err:.3e} "
+                      f"(tol {TP_EVAL_TOL:g})")
+    one_task, _ = run.build_task(load_config(yaml_path, base[2:]),
+                                 torch.device(TRAIN_DEVICE))
+    state = torch.load(ckpt, map_location=TRAIN_DEVICE, weights_only=True)
+    one_task.model.load_state_dict(state["model"], strict=True)  # keys and shapes
+    same = state_hash(one_task.model) == fit_r[0]["hash"]
+    if not same:
+        failed.append("[17c] epoch=0.pt loaded into one process differs from the "
+                      "ranks' gathered state")
+    del one_task, state
+    print(f"[17c] CLI stage 3 B={TP_CLI_B} on phase 12's tree, --trainer.devices {TP_M} "
+          f"--trainer.model_parallel {TP_M}: "
+          + (f"over NCCL refused ({refused}); " if refused else "")
+          + f"fit ({steps} steps, grafted from phase 12's stage 2), validate and predict "
+          f"in a {TP_M}-rank gloo group on one card, each rank lazy_deform_sample "
+          f"{fit_r[0]['launched']['lazy_deform_sample']} + "
+          f"{val_r[0]['launched']['lazy_deform_sample']} + "
+          f"{pred_r[0]['launched']['lazy_deform_sample']}, lazy_deform_sample_bwd "
+          f"{fit_r[0]['launched']['lazy_deform_sample_bwd']}; validate {val_err:.3e} "
+          f"and predict {pred_err:.3e} from one process's on the same checkpoint, over "
+          f"max(1, |value|) (tol {TP_EVAL_TOL:g}); epoch=0.pt loads into one process "
+          f"strictly, {'bitwise' if same else 'NOT bitwise'} the ranks' gathered state "
+          f"| {card}", flush=True)
+
+    # 17d
+    d = [r["17d"] for r in two]
+    for r in d:
+        add(r["launched"])
+        if r["launched"] != r["expected"] or not math.isfinite(r["loss"]):
+            failed.append(f"[17d] head512 rank launched {r['launched']}, expected "
+                          f"{r['expected']}; loss {r['loss']}")
+    one = STEP_PEAKS.get(("head512", True))
+    one_text = (f"{one / 2**30:.2f} GiB in one process (phase 15b's kernel step, "
+                f"less its check's copies of the plain step)" if one
+                else "not measured in this run")
+    print(f"[17d] head512 {TRAIN_SIZE}px B={TRAIN_BATCH} fp32, one step at M = {TP_M}: "
+          f"mlp_pred_0 slice {d[0]['slice']} (dim {d[0]['dim']}) a rank; build (the "
+          f"full seeded model, then the slices) {max(r['build'] for r in d):.1f} s; "
+          f"step peak {max(r['peak'] for r in d):.2f} GiB a rank vs {one_text}; "
+          f"loss {d[0]['loss']:.4f}; launches {d[0]['launched']['lazy_deform_sample']} + "
+          f"{d[0]['launched']['lazy_deform_sample_bwd']} | {card}", flush=True)
+    print(f"[17] {time.perf_counter() - t0:.1f} s (2 ranks {t_two:.1f} s, 4 ranks "
+          f"{t_four:.1f} s) | {card}", flush=True)
+    if failed:
+        raise AssertionError("[17] " + " | ".join(failed))
+    return total
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3525,10 +3994,12 @@ def main() -> int:
             dp_launched = timed("14", phase_device_preprocess, card, workdir, cli)
             branch_launched = timed("15", phase_branches, card, model_locs,
                                     workdir, cli)
-            ddp_launched = timed("16a", phase_data_parallel, card, workdir)
+            ddp_launched, dp_refs = timed("16a", phase_data_parallel, card, workdir)
             ddp_cli_launched = timed("16b", phase_cli_data_parallel, card, workdir,
                                      cli)
             remat_launched = timed("16c", phase_remat, card)
+            tp_launched = timed("17", phase_tensor_parallel, card, workdir, cli,
+                                dp_refs)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[7] main-path launches: serving forward lazy_deform_sample "
@@ -3560,7 +4031,10 @@ def main() -> int:
           f"{ddp_cli_launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
           f"{ddp_cli_launched['lazy_deform_sample_bwd']}; remat lazy_deform_sample "
           f"{remat_launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
-          f"{remat_launched['lazy_deform_sample_bwd']} | {card}", flush=True)
+          f"{remat_launched['lazy_deform_sample_bwd']}; tensor-parallel (every rank) "
+          f"lazy_deform_sample {tp_launched['lazy_deform_sample']}, "
+          f"lazy_deform_sample_bwd {tp_launched['lazy_deform_sample_bwd']} | {card}",
+          flush=True)
     # Each main path's counts, zeroed before and read after its own run;
     # ``launches`` is their sum.
     by_path = {"serving_lazy": serve[True], "serving_reference": serve[False],
@@ -3570,7 +4044,8 @@ def main() -> int:
                "cli_device_preprocess": dp_launched["device_preprocess"],
                "cli_cache_in_memory": dp_launched["cache_in_memory"],
                "branches": branch_launched, "data_parallel": ddp_launched,
-               "cli_data_parallel": ddp_cli_launched, "remat": remat_launched}
+               "cli_data_parallel": ddp_cli_launched, "remat": remat_launched,
+               "tensor_parallel": tp_launched}
     print("[7] seconds by phase: "
           + " ".join(f"{k}={v:.1f}" for k, v in seconds.items())
           + f"; total {time.perf_counter() - t0:.1f} | {card}", flush=True)

@@ -7,9 +7,10 @@ Takes the reference's Lightning-CLI schema unchanged (``seed_everything``,
 model's ``init_args`` and a :class:`~egorear_tpu_torch.train.trainer.TrainerConfig`.
 Dot-overrides (``--model.batch_size 1 --trainer.max_epochs 2``) apply as the
 reference CLI's do; :attr:`ExperimentConfig.cli_keys` records which keys they
-set. Unknown trainer keys (``benchmark``, ...) are ignored with a log line;
-the TPU-only tensor-parallel knobs (``tp_min_dim``, ``tp_shard_stacked``)
-are refused.
+set. Unknown trainer keys (``benchmark``, ...) are ignored with a log line.
+The framework's own trainer knobs (the tensor-parallel ``tp_min_dim`` and
+``tp_shard_stacked`` among them) are coerced to their declared types as the
+JAX package's loader coerces them.
 """
 
 from __future__ import annotations
@@ -38,10 +39,6 @@ CLASS_PATH_TO_TASK = {
     "heatmap_mvf_ex": "heatmap_mvf_ex",
     "pose_3d_mvf_ex": "pose_3d_mvf_ex",
 }
-
-# Trainer keys the JAX package reads for its TPU mesh only.
-TPU_ONLY_KEYS = ("tp_min_dim", "tp_shard_stacked")
-
 
 @dataclasses.dataclass
 class ExperimentConfig:
@@ -129,10 +126,6 @@ def _coerce(name: str, value, typ):
 
 
 def _trainer_config(traw: dict, save_dir: Optional[str], seed: int) -> TrainerConfig:
-    refused = [k for k in TPU_ONLY_KEYS if k in traw]
-    if refused:
-        raise ValueError(f"trainer.{refused[0]}: a TPU-only tensor-parallel "
-                         f"setting, which the GPU port does not take")
     known = dict(
         max_epochs=traw.get("max_epochs", 12),
         check_val_every_n_epoch=traw.get("check_val_every_n_epoch", 1),
@@ -146,7 +139,8 @@ def _trainer_config(traw: dict, save_dir: Optional[str], seed: int) -> TrainerCo
     # The framework's own knobs, addressable as --trainer.<field>, coerced
     # to their declared types here so that a quoted yaml value fails early.
     aux_types = {"profile_steps": int, "debug_nans": bool, "auto_resume": bool,
-                 "remat": bool, "encoder_lr_scale": float}
+                 "remat": bool, "encoder_lr_scale": float, "tp_min_dim": int,
+                 "tp_shard_stacked": bool}
     for aux, typ in aux_types.items():
         if aux in traw:
             known[aux] = _coerce(aux, traw[aux], typ)

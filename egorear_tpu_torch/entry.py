@@ -42,7 +42,7 @@ from egorear_tpu_torch.models.pose3d import EgoRearNet
 from egorear_tpu_torch.ops.camera import CameraRig
 from egorear_tpu_torch.train.checkpoint import apply_pretrained
 from egorear_tpu_torch.train.tasks import HeatmapTask, MVFexTask, Pose3DTask
-from egorear_tpu_torch.train.trainer import Trainer, no_decay_mask_for
+from egorear_tpu_torch.train.trainer import Trainer, TrainerConfig, no_decay_mask_for
 
 FLAGSHIP_CFG = {
     "num_views": 4,
@@ -181,18 +181,26 @@ STAGE_OPTIM = dict(lr=1e-3, weight_decay=5e-3, lr_decay_epochs=(8, 10),
 STAGE_PRECISION, STAGE_BATCH = "32", 64
 
 
-def _trainer(task, precision, defaults, optim, steps_per_epoch, pretrained):
+def _trainer(task, precision, defaults, optim, steps_per_epoch, pretrained,
+             parallel=None):
     """The task's trainer with ``defaults`` overridden by ``optim`` (the
     no-decay mask, unless given, as the JAX package's ``run.py`` sets it),
     its state initialised, then the ``pretrained`` stages grafted into the
-    model (the optimizer holds the model's parameters and keeps its state)."""
+    model (the optimizer holds the model's parameters and keeps its state).
+    ``parallel`` holds :class:`TrainerConfig`'s tensor-parallel settings
+    (``model_parallel``, ``tp_min_dim``, ``tp_shard_stacked``): the model
+    is then sharded over the process group's model axis."""
     unknown = set(optim) - set(defaults) - {"no_decay_mask"}
     if unknown:
         raise TypeError(f"unknown optimizer settings {sorted(unknown)}")
     settings = {**defaults, **optim}
     settings.setdefault("no_decay_mask", no_decay_mask_for(
         task.name, settings["encoder_lr_scale"]))
-    trainer = Trainer(task, precision=precision, **settings)
+    config = TrainerConfig(precision=precision,
+                           gradient_clip_val=settings.pop("gradient_clip_val"),
+                           encoder_lr_scale=settings["encoder_lr_scale"],
+                           **(parallel or {}))
+    trainer = Trainer(task, config=config, **settings)
     trainer.init_state(steps_per_epoch)
     if pretrained:
         apply_pretrained(task.model, task.name, pretrained)
@@ -203,7 +211,8 @@ def build_train(image_size=(256, 256), device=None,
                 precision: str = "bf16-mixed", seed: int = 0, *,
                 steps_per_epoch: int, lazy_deform: bool = True,
                 imagenet: bool = True, pretrained=None,
-                overrides: Optional[dict] = None, **optim):
+                overrides: Optional[dict] = None, parallel: Optional[dict] = None,
+                **optim):
     """The flagship stage-3 training set-up: ``(Pose3DTask, Trainer)``.
 
     Random weights from ``seed``, on ``cuda`` unless ``device`` says
@@ -217,7 +226,9 @@ def build_train(image_size=(256, 256), device=None,
     e.g. ``heatmap_estimator_mvf_pretrained``) to checkpoints. The optimizer
     follows the yaml (:data:`FLAGSHIP_OPTIM`); ``optim`` overrides any of its
     keys. ``steps_per_epoch`` (the loader's length) places the lr milestones.
-    The trainer's state is initialised.
+    ``parallel`` (e.g. ``{"model_parallel": 2}``, inside a process group)
+    shards the model over the model axis, as :class:`TrainerConfig`'s
+    fields of those names do. The trainer's state is initialised.
     """
     device = torch.device("cuda" if device is None else device)
     cfg = _merged(flagship_cfg_dict(image_size, lazy_deform=lazy_deform),
@@ -225,7 +236,7 @@ def build_train(image_size=(256, 256), device=None,
     cfg["heatmap_mvf_cfg"]["encoder_cfg"]["resnet_cfg"]["use_imagenet_pretrain"] = imagenet
     task = Pose3DTask(cfg, device=device, seed=seed)
     return task, _trainer(task, precision, FLAGSHIP_OPTIM, optim,
-                          steps_per_epoch, pretrained)
+                          steps_per_epoch, pretrained, parallel)
 
 
 def build_stage1(device=None, precision: str = STAGE_PRECISION, seed: int = 0, *,
@@ -245,7 +256,7 @@ def build_stage1(device=None, precision: str = STAGE_PRECISION, seed: int = 0, *
 def build_stage2(image_size=(256, 256), device=None,
                  precision: str = STAGE_PRECISION, seed: int = 0, *,
                  steps_per_epoch: int, imagenet: bool = True, pretrained=None,
-                 **optim):
+                 parallel: Optional[dict] = None, **optim):
     """Stage 2 as the yaml trains it: ``(MVFexTask, Trainer)`` with
     :data:`STAGE2_CFG` at ``image_size`` and :data:`STAGE_OPTIM`.
     ``pretrained`` takes the stage-1 checkpoints under
@@ -255,4 +266,4 @@ def build_stage2(image_size=(256, 256), device=None,
     cfg["encoder_cfg"]["resnet_cfg"]["use_imagenet_pretrain"] = imagenet
     task = MVFexTask(cfg, device=device, seed=seed)
     return task, _trainer(task, precision, STAGE_OPTIM, optim, steps_per_epoch,
-                          pretrained)
+                          pretrained, parallel)

@@ -34,8 +34,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     With ``shard`` (a :class:`~egorear_tpu_torch.parallel.dist.DataShard`
     of more than one rank, set by :func:`~egorear_tpu_torch.models.layers.
     data_parallel`) the statistics are the global batch's, as under the JAX
-    package's sharded jit: each rank's (count, mean, M2) is gathered by a
-    differentiable all-reduce and combined in rank order (Chan's formula),
+    package's sharded jit: each rank's (count, mean, M2) is gathered over
+    the shard's data group (never the whole grid: a model group's ranks
+    hold the same rows, and counting them M times would scale the
+    backward by M) by a differentiable all-reduce and combined in rank
+    order (Chan's formula),
     in fp32 or the input's wider dtype, so the backward flows through the
     global statistics and every rank updates the same running stats. With
     ``replay`` (a rematerialised forward's second run) the running stats

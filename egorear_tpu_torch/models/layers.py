@@ -60,9 +60,10 @@ class Dropout(nn.Module):
     the identity.
 
     With ``shard`` (a :class:`~egorear_tpu_torch.parallel.dist.DataShard`
-    of W > 1 ranks, set by :func:`data_parallel`) the module draws the
-    global batch's (W n, ...) uniforms and keeps this rank's n rows, so W
-    ranks drop bitwise what one process drops on the whole batch. The
+    of W > 1 data ranks, set by :func:`data_parallel`) the module draws the
+    global batch's (W n, ...) uniforms and keeps this data rank's n rows,
+    so W ranks drop bitwise what one process drops on the whole batch (the
+    ranks of a model group, which hold the same rows, draw the same). The
     leading axis must be the batch's, in global order, a rank holding a
     contiguous block of it: true at every call site (the FFNs' (B, J, C)
     tokens in the refiners and the lifting layers, the proposal MLP's

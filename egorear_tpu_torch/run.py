@@ -29,6 +29,14 @@ one rank per card, as the JAX package takes every device), and under
 is the rank its environment names, on card ``LOCAL_RANK`` (the launcher's
 world size wins over ``devices``). The kernels are built once before the
 ranks start.
+
+Tensor-parallel (the JAX package's ``model`` mesh axis): with
+``--trainer.model_parallel M`` the N ranks (N divisible by M, else
+``ValueError``) form a (N/M data) x (M model) grid, and the wide leaves
+(``--trainer.tp_min_dim``, ``--trainer.tp_shard_stacked``) are sharded
+over each model group (:mod:`egorear_tpu_torch.parallel.tensor`). Every
+rank builds the full seeded model, or loads the full checkpoint, and keeps
+its slices; ``epoch=N.pt`` holds the full leaves.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ import torch
 from egorear_tpu_torch import kernels
 from egorear_tpu_torch.config.loader import load_config
 from egorear_tpu_torch.data.datasets import get_dataset
-from egorear_tpu_torch.parallel import dist
+from egorear_tpu_torch.parallel import dist, tensor
 from egorear_tpu_torch.train import checkpoint as ckpt_lib
 from egorear_tpu_torch.train.tasks import TASKS, resolve_device
 from egorear_tpu_torch.train.trainer import Trainer, no_decay_mask_for
@@ -132,23 +140,29 @@ def load_eval_ckpt(task, cfg, ckpt_path: str) -> None:
     """The model state of the checkpoint at ``ckpt_path`` into the task's
     model: the port's ``.pt``, or an EgoRear ``.ckpt`` of the config's task
     (imported strictly; a checkpoint without BN statistics keeps the
-    model's)."""
+    model's). Both hold the full model; a tensor-parallel rank keeps its
+    slices."""
     if ckpt_path.endswith(".ckpt"):
-        sd = ckpt_lib.load_pretrained(ckpt_path, task.model.state_dict(),
+        sd = ckpt_lib.load_pretrained(ckpt_path, tensor.full_state_dict(task.model),
                                       cfg.task_name)
     else:
         sd = ckpt_lib.restore(ckpt_path, map_location=next(
             task.model.parameters()).device)["model"]
-    task.model.load_state_dict(sd, strict=True)
+    tensor.load_full_state_dict(task.model, sd, strict=True)
     logger.info(f"loaded eval checkpoint {ckpt_path}")
 
 
-def ranks_asked(devices: Optional[int], device_type: str) -> int:
-    """The data-parallel ranks ``devices`` asks for: every card when it is
-    unset (the JAX package's ``None = all``), one on the CPU."""
-    if devices:
-        return devices
-    return torch.cuda.device_count() if device_type == "cuda" else 1
+def ranks_asked(devices: Optional[int], device_type: str,
+                model_parallel: int = 1) -> int:
+    """The ranks ``devices`` asks for: every card when it is unset (the
+    JAX package's ``None = all``), one on the CPU. Raises ``ValueError``,
+    as the JAX package's trainer does, when ``model_parallel`` does not
+    divide them."""
+    n = devices or (torch.cuda.device_count() if device_type == "cuda" else 1)
+    if n % max(1, model_parallel):
+        raise ValueError(f"model_parallel={model_parallel} does not divide "
+                         f"{n} devices")
+    return n
 
 
 def main(argv=None, backend: Optional[str] = None):
@@ -180,7 +194,7 @@ def main(argv=None, backend: Optional[str] = None):
                     kernels.build()  # once per host, before any rank loads
                 dist.barrier()
             return _run(args_ns, cfg)
-    n = ranks_asked(cfg.trainer.devices, device_type)
+    n = ranks_asked(cfg.trainer.devices, device_type, cfg.trainer.model_parallel)
     if n > 1:
         if device_type == "cuda":
             kernels.build()  # once, before the ranks start

@@ -148,15 +148,19 @@ def apply_pretrained(model: nn.Module, task_name: str,
     the keys of :data:`PRETRAINED_GRAFTS` with checkpoint paths) into
     ``model``, in place: parameters and BN buffers are copied into the
     existing tensors, in their dtype and on their device, so an optimizer
-    built on ``model`` keeps its parameters and its state. Returns the keys
-    grafted."""
+    built on ``model`` keeps its parameters and its state. A tensor-parallel
+    model (``parallel/tensor.py``) is grafted as the full tree, then each
+    rank keeps its slices (every rank of a model group calls this). Returns
+    the keys grafted."""
+    from egorear_tpu_torch.parallel import tensor
+
     done = []
     for key, (sub_path, sub_task) in PRETRAINED_GRAFTS.items():
         ckpt = args.get(key)
         if not ckpt:
             continue
-        sd = model.state_dict()
+        sd = tensor.full_state_dict(model)
         loaded = load_pretrained(ckpt, sub_state(sd, sub_path), sub_task or task_name)
-        model.load_state_dict(graft(sd, sub_path, loaded), strict=True)
+        tensor.load_full_state_dict(model, graft(sd, sub_path, loaded), strict=True)
         done.append(key)
     return done

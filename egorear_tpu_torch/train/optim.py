@@ -74,12 +74,25 @@ def make_optimizer(model: nn.Module, base_lr: float, weight_decay: float,
 
 
 def clip_by_global_norm_(grads: Sequence[torch.Tensor],
-                         max_norm: Optional[float]) -> torch.Tensor:
+                         max_norm: Optional[float],
+                         sharded: Sequence[torch.Tensor] = (),
+                         model_group=None) -> torch.Tensor:
     """Scale ``grads`` in place to a global L2 norm of at most ``max_norm``,
     as optax's ``clip_by_global_norm``: by ``max_norm / norm`` when
     ``norm >= max_norm``, else not at all (``clip_grad_norm_`` would add 1e-6
-    to the norm). Returns the norm before clipping; no host synchronisation."""
+    to the norm). ``sharded`` are a tensor-parallel rank's gradient slices:
+    their squares are summed over ``model_group`` (every rank of it calls
+    this), so the norm is the whole parameter's and every rank clips by the
+    same factor; they are scaled too. Returns the norm before clipping; no
+    host synchronisation."""
     norm = nn.utils.get_total_norm(grads, norm_type=2.0)
+    if sharded:
+        import torch.distributed as dist
+
+        sq = nn.utils.get_total_norm(sharded, norm_type=2.0) ** 2
+        dist.all_reduce(sq, group=model_group)
+        norm = torch.sqrt(norm ** 2 + sq)
+        grads = list(grads) + list(sharded)
     if max_norm is not None:
         factor = torch.where(norm < max_norm, torch.ones_like(norm),
                              max_norm / norm)

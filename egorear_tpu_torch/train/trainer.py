@@ -49,6 +49,24 @@ others wait for each checkpoint at a barrier. ``evaluate`` gathers the
 per-sample metrics into global order and returns the same dict on every
 rank; ``predict`` runs on rank 0 alone.
 
+Tensor-parallel over the model axis (``model_parallel`` M > 1, the JAX
+package's ``--trainer.model_parallel``): the ranks form a (W/M data) x (M
+model) grid (:func:`~egorear_tpu_torch.parallel.dist.data_shard`); the
+``data`` axis above is the data group's, and each model group holds one
+replica with the leaves of :func:`~egorear_tpu_torch.parallel.mesh.
+param_placements` (``tp_min_dim``, ``tp_shard_stacked``) sharded over it
+(:func:`~egorear_tpu_torch.parallel.tensor.shard_model`, before the
+optimizer exists, so the moments are slices too). A step averages the
+sharded leaves' gradients over the data group and the replicated ones over
+the whole grid (so that the replicas stay bitwise the same across a model
+group even where a card's kernels sum in a varying order), and clips by
+the norm of the whole parameter: the slices' squares are summed over the
+model group, the replicated leaves count once. :meth:`Trainer.state_dict`
+gathers the sharded leaves and moments whole, so ``epoch=N.pt`` is the
+one-process format; :meth:`Trainer.load_state_dict` slices it.
+``evaluate`` runs each data group's rows on its model group; ``predict``
+runs on rank 0's model group and rank 0 writes.
+
 ``remat`` (the JAX package's ``jax.checkpoint(loss_fn)``) runs the task's
 loss under ``torch.utils.checkpoint`` (non-reentrant): its activations are
 recomputed in the backward. The recompute replays the forward exactly:
@@ -75,7 +93,8 @@ from torch.utils.checkpoint import checkpoint
 from egorear_tpu_torch.data.loader import DataLoader
 from egorear_tpu_torch.models.backbone import BatchNorm2d
 from egorear_tpu_torch.models.layers import data_parallel
-from egorear_tpu_torch.parallel import dist
+from egorear_tpu_torch.parallel import dist, tensor
+from egorear_tpu_torch.parallel.mesh import TP_MIN_DIM
 from egorear_tpu_torch.train import checkpoint as ckpt_lib
 from egorear_tpu_torch.train.optim import (
     clip_by_global_norm_,
@@ -99,9 +118,11 @@ def dropout_seed(seed: int, step: int) -> int:
 @dataclasses.dataclass
 class TrainerConfig:
     """The trainer settings of a config (the JAX package's
-    ``TrainerConfig``, less its TPU mesh knobs). ``devices`` is the number
-    of data-parallel ranks that ``run.main`` starts (None: one per card,
-    as the JAX package takes every device); ``model_parallel`` > 1 raises."""
+    ``TrainerConfig``). ``devices`` is the number of ranks that
+    ``run.main`` starts (None: one per card, as the JAX package takes every
+    device); ``model_parallel`` the size of the model axis that shards the
+    leaves of at least ``tp_min_dim`` (with ``tp_shard_stacked``, the
+    stacked refiner kernels too; ``parallel/mesh.py``)."""
 
     max_epochs: int = 12
     check_val_every_n_epoch: int = 1
@@ -113,6 +134,8 @@ class TrainerConfig:
     ckpt_every_n_epochs: int = 1
     devices: Optional[int] = None  # None: every card
     model_parallel: int = 1
+    tp_min_dim: int = TP_MIN_DIM
+    tp_shard_stacked: bool = True
     profile_steps: int = 0  # torch.profiler trace of the first N steps
     debug_nans: bool = False  # stop at the first non-finite loss
     auto_resume: bool = False  # resume from the newest checkpoint in save_dir
@@ -124,11 +147,6 @@ class TrainerConfig:
         if self.precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got "
                              f"{self.precision!r}")
-        if self.model_parallel > 1:
-            raise NotImplementedError(
-                f"model_parallel={self.model_parallel}: tensor parallelism is "
-                f"not ported (ROADMAP Queue A, tensor parallelism over the "
-                f"model axis)")
 
 
 class _NullLogger:
@@ -237,11 +255,13 @@ class Trainer:
                  precision: str = "32",
                  gradient_clip_val: Optional[float] = 5.0,
                  no_decay_mask: bool = False, encoder_lr_scale: float = 1.0,
-                 batch_size: int = 32, workers: int = 8):
-        # The one home of the trainer's settings; from_config replaces it.
-        self.cfg = TrainerConfig(precision=precision,
-                                 gradient_clip_val=gradient_clip_val,
-                                 encoder_lr_scale=encoder_lr_scale)
+                 batch_size: int = 32, workers: int = 8,
+                 config: Optional[TrainerConfig] = None):
+        # The one home of the trainer's settings: ``config`` (from_config's)
+        # or the defaults with the arguments above.
+        self.cfg = config or TrainerConfig(precision=precision,
+                                           gradient_clip_val=gradient_clip_val,
+                                           encoder_lr_scale=encoder_lr_scale)
         self.task = task
         self.lr = lr
         self.weight_decay = weight_decay
@@ -253,8 +273,19 @@ class Trainer:
         self.optimizer = None
         self.lr_schedule = None
         self.step = 0
-        # This rank's share of the global batch (the one process: all).
-        self.shard = dist.data_shard(batch_size)
+        # This rank's place on the grid and share of the global batch (the
+        # one process: all of it).
+        mp = max(1, int(self.cfg.model_parallel or 1))
+        self.shard = dist.data_shard(batch_size, mp)
+        if mp > 1:
+            if self.cfg.tp_shard_stacked:
+                logger.info(f"tp_shard_stacked with model_parallel={mp}: 3-D "
+                            f"stacked refiner kernels shard over the 'model' axis")
+            if self.shard.active:
+                dims = tensor.shard_model(task.model, self.shard,
+                                          self.cfg.tp_min_dim,
+                                          self.cfg.tp_shard_stacked)
+                logger.info(f"{len(dims)} leaves sharded over the model axis")
         self._dropout_gen = None
         self.logger = None
         # (epoch, steps, seconds) of each epoch that fit ran.
@@ -264,11 +295,7 @@ class Trainer:
     def from_config(cls, task, cfg: TrainerConfig, **kwargs) -> "Trainer":
         """A trainer whose settings, loops' included, are ``cfg``'s;
         ``kwargs`` are the constructor's optimizer and loader arguments."""
-        trainer = cls(task, precision=cfg.precision,
-                      gradient_clip_val=cfg.gradient_clip_val,
-                      encoder_lr_scale=cfg.encoder_lr_scale, **kwargs)
-        trainer.cfg = cfg
-        return trainer
+        return cls(task, config=cfg, **kwargs)
 
     @property
     def precision(self) -> str:
@@ -308,21 +335,30 @@ class Trainer:
         self.step = 0
 
     def state_dict(self) -> dict:
-        """Model (parameters and BN buffers), optimizer state and step."""
+        """Model (parameters and BN buffers), optimizer state and step, in
+        the one-process format: tensor-parallel, the sharded leaves and
+        their moments are gathered whole (every rank of the model group
+        calls it)."""
         if self.optimizer is None:
             raise RuntimeError("call init_state(steps_per_epoch) first")
-        return {"model": self.task.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(), "step": self.step}
+        model = self.task.model
+        return {"model": tensor.full_state_dict(model),
+                "optimizer": tensor.full_optimizer_state(model, self.optimizer),
+                "step": self.step}
 
     def load_state_dict(self, state: dict) -> None:
         """Restore :meth:`state_dict`'s output, from any device, into the
         live model and optimizer, strictly: the model's tensors are copied
         in place, the moments land on their parameter's device and AdamW's
-        step counts on the host, where the optimizer keeps them."""
+        step counts on the host, where the optimizer keeps them.
+        Tensor-parallel, each rank keeps its slices of the sharded leaves
+        and moments."""
         if self.optimizer is None:
             raise RuntimeError("call init_state(steps_per_epoch) first")
-        self.task.model.load_state_dict(state["model"], strict=True)
-        opt = state["optimizer"]
+        model = self.task.model
+        tensor.load_full_state_dict(model, state["model"], strict=True)
+        opt = tensor.slice_optimizer_state(model, self.optimizer,
+                                           state["optimizer"])
         self.optimizer.load_state_dict({
             "state": {i: {k: v.cpu() if torch.is_tensor(v) else v
                           for k, v in s.items()} for i, s in opt["state"].items()},
@@ -346,8 +382,8 @@ class Trainer:
     def train_step(self, batch: dict) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``batch`` (data-parallel: this rank's rows
         of the global batch); returns the loss terms of this step's forward
-        (data-parallel: averaged over the ranks) and the lr it used (0-d
-        tensors, not synchronised)."""
+        (data-parallel: averaged over the data group) and the lr it used
+        (0-d tensors, not synchronised)."""
         if self.optimizer is None:
             raise RuntimeError("call init_state(steps_per_epoch) first")
         if not self.shard.active:
@@ -377,14 +413,17 @@ class Trainer:
         # then skip its moments and its weight decay; optax sees a zero grad.
         # Zero-filled before the average, so every rank reduces the same
         # buffers (a zero averages to zero).
-        grads = []
-        for p in named.values():
+        sharded = tensor.placements(model)
+        grads, slices = [], []
+        for n, p in named.items():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
+            (slices if n in sharded else grads).append(p.grad)
         if self.shard.collective:
-            dist.all_reduce_mean_(grads, self.shard)
-        clip_by_global_norm_(grads, self.gradient_clip_val)
+            dist.all_reduce_mean_(grads, self.shard, grid=True)
+            dist.all_reduce_mean_(slices, self.shard)
+        clip_by_global_norm_(grads, self.gradient_clip_val, slices,
+                             self.shard.model_group)
         lr = self.lr_schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group["lr_scale"]
@@ -412,9 +451,19 @@ class Trainer:
                           **kwargs)
 
     def _barrier(self) -> None:
-        """Wait for the other ranks of the data group."""
+        """Wait for the other active ranks."""
         if self.shard.collective:
-            dist.barrier(self.shard.group)
+            dist.barrier(self.shard.grid_process_group)
+
+    def _save(self, subdir: str, epoch: int) -> None:
+        """Rank 0 writes ``epoch=N.pt`` under the log directory's
+        ``subdir``; tensor-parallel, every rank first gathers its model
+        group's state (:meth:`state_dict`). The active ranks then meet."""
+        if self.is_main or tensor.placements(self.task.model):
+            state = self.state_dict()
+            if self.is_main:
+                ckpt_lib.save(os.path.join(self.logger.dir, subdir), epoch, state)
+        self._barrier()
 
     def _resume_dir(self, resume_dir: Optional[str]) -> Optional[str]:
         """``resume_dir``, or with ``auto_resume`` the newest
@@ -464,7 +513,7 @@ class Trainer:
         ``checkpoints-nan`` and raises ``FloatingPointError``.
 
         Data-parallel, rank 0 writes the metrics, checkpoints and trace,
-        and the data group meets at a barrier after each checkpoint; a rank
+        and the active ranks meet at a barrier after each checkpoint; a rank
         that the batch leaves idle returns at once.
         """
         cfg = self.cfg
@@ -509,11 +558,7 @@ class Trainer:
                 if cfg.debug_nans:
                     first_loss = next(iter(metrics.values()))
                     if not bool(torch.isfinite(first_loss)):
-                        if self.is_main:
-                            ckpt_lib.save(os.path.join(self.logger.dir,
-                                                       "checkpoints-nan"),
-                                          epoch, self.state_dict())
-                        self._barrier()
+                        self._save("checkpoints-nan", epoch)
                         raise FloatingPointError(
                             f"non-finite loss at step {self.step}; state saved")
                 if self.step % cfg.log_every_n_steps == 0:
@@ -538,10 +583,7 @@ class Trainer:
 
             if ((epoch + 1) % cfg.ckpt_every_n_epochs == 0
                     or epoch == cfg.max_epochs - 1):
-                if self.is_main:
-                    ckpt_lib.save(os.path.join(self.logger.dir, "checkpoints"),
-                                  epoch, self.state_dict())
-                self._barrier()
+                self._save("checkpoints", epoch)
         if prof is not None:  # fewer steps than profile_steps
             self._stop_profiler(prof)
         return self
@@ -561,9 +603,10 @@ class Trainer:
         repeating its last sample (static shapes, as the JAX package); only
         its first ``__valid_n__`` samples count. ``mode == "test"`` turns on
         the task's test-mode metrics. Data-parallel, each rank evaluates its
-        rows, the per-sample metrics are gathered into the global batch's
-        order, and every rank returns the same dict (an idle rank gets rank
-        0's)."""
+        rows (tensor-parallel, each model group its data rank's rows), the
+        per-sample metrics are gathered over the data group into the global
+        batch's order, and every rank returns the same dict (an idle rank
+        gets rank 0's)."""
         metrics = self._evaluate(dataset, mode) if self.shard.active else None
         if self.shard.world < dist.world_size():
             metrics = dist.broadcast_object(metrics)
@@ -608,11 +651,12 @@ class Trainer:
         to the batch size and cut back. With ``save_obj`` each ``final``
         pose is also written as a skeleton mesh ``pose_<i>.obj``.
         Data-parallel, rank 0 predicts the whole dataset and writes; the
-        other ranks return None at once."""
-        if not self.is_main:
+        other ranks return None at once. Tensor-parallel, rank 0's model
+        group predicts together and rank 0 writes."""
+        if not (self.is_main or (self.shard.active and self.shard.rank == 0
+                                 and self.shard.model_world > 1)):
             return None
         loader = self._loader(dataset, shuffle=False, drop_last=False)
-        os.makedirs(out_dir, exist_ok=True)
         collected: Dict[str, list] = {}
         paths = []
         for batch in loader:
@@ -626,6 +670,9 @@ class Trainer:
             for k, v in self.task.predict_outputs(arr).items():
                 collected.setdefault(k, []).append(v.cpu().numpy()[:n])
             paths.extend(batch.get("frame_path", [""] * n)[:n])
+        if not self.is_main:
+            return None
+        os.makedirs(out_dir, exist_ok=True)
         stacked = {k: np.concatenate(v) for k, v in collected.items()}
         if not stacked and hasattr(self.task, "rig"):  # pose3d on no data
             stacked = {"final": np.zeros((0, 16, 3)),

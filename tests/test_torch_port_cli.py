@@ -58,7 +58,7 @@ from egorear_tpu_torch.convert import from_flax
 from egorear_tpu_torch.data.synthetic import make_synthetic_dataset
 from egorear_tpu_torch.train import checkpoint
 from egorear_tpu_torch.train.tasks import HeatmapTask
-from egorear_tpu_torch.train.trainer import CSVLogger, TrainerConfig
+from egorear_tpu_torch.train.trainer import CSVLogger, Trainer, TrainerConfig
 from test_torch_port_models import random_variables
 
 REPO = os.path.join(os.path.dirname(__file__), os.pardir)
@@ -123,10 +123,7 @@ def _data(root: str, save_dir, batch: int, *extra) -> list:
 
 
 def _jax_trainer_fields(cfg) -> dict:
-    d = dict(vars(cfg.trainer))
-    for k in ("tp_min_dim", "tp_shard_stacked"):
-        d.pop(k)
-    return d
+    return dict(vars(cfg.trainer))
 
 
 @pytest.mark.parametrize("name", YAMLS)
@@ -161,14 +158,28 @@ def test_overrides_cli_keys_and_refusals():
         cfg = load_config(_yaml("ego4view_syn_pose3d"), ov2)
         run._apply_encoder_lr(cfg, dict(cfg.init_args))
         assert cfg.trainer.encoder_lr_scale == scale
-    with pytest.raises(ValueError, match="TPU-only"):
-        load_config(_yaml(STAGE1), ["--trainer.tp_min_dim", "4"])
-    # Data parallelism and remat are ported; the model axis is refused.
+    # The tensor-parallel keys, coerced as the JAX package's loader does: a
+    # quoted number is taken as the int, anything else is refused.
+    for ov2 in (["--trainer.tp_min_dim", "4", "--trainer.tp_shard_stacked", "false"],
+                ["--trainer.tp_min_dim", '"2048"', "--trainer.tp_shard_stacked", "on"]):
+        got = load_config(_yaml(STAGE1), ov2)
+        assert vars(got.trainer) == vars(jax_load_config(_yaml(STAGE1), ov2).trainer)
+        assert type(got.trainer.tp_min_dim) is int
+    assert got.trainer.tp_min_dim == 2048 and got.trainer.tp_shard_stacked is True
+    for bad in (["--trainer.tp_min_dim", "lots"], ["--trainer.tp_shard_stacked", "maybe"]):
+        with pytest.raises(ValueError) as want:
+            jax_load_config(_yaml(STAGE1), bad)
+        with pytest.raises(ValueError, match="expects (int|bool)") as e:
+            load_config(_yaml(STAGE1), bad)
+        assert str(e.value) == str(want.value)
+    # Data parallelism, remat and the model axis are ported.
     taken = load_config(_yaml(STAGE1), ["--trainer.remat", "true",
                                         "--trainer.devices", "2"])
     assert taken.trainer.remat is True and taken.trainer.devices == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_config(_yaml(STAGE1), ["--trainer.model_parallel", "2"])
+    ov2 = ["--trainer.model_parallel", "2", "--trainer.devices", "4"]
+    taken = load_config(_yaml(STAGE1), ov2)
+    assert taken.trainer.model_parallel == 2
+    assert vars(taken.trainer) == vars(jax_load_config(_yaml(STAGE1), ov2).trainer)
     with pytest.raises(ValueError):
         load_config(_yaml(STAGE1), ["--trainer.precision", "16-mixed"])
     with pytest.raises(ValueError):
@@ -434,8 +445,9 @@ def test_ckpt_import_and_cuda_refused(tmp_path, monkeypatch):
         run.load_eval_ckpt(task, types.SimpleNamespace(task_name="heatmap"), ckpt)
     assert all(torch.equal(v, before[k]) for k, v in task.model.state_dict().items())
     assert TrainerConfig(remat=True, devices=2).remat
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainerConfig(model_parallel=2)
+    assert TrainerConfig(model_parallel=2).model_parallel == 2
+    with pytest.raises(ValueError, match="model_parallel=2 does not divide 1 devices"):
+        Trainer(task, 1e-3, 0.0, (), 1, config=TrainerConfig(model_parallel=2))
     if not torch.cuda.is_available():  # the module's own entry, as users run it
         out = subprocess.run(
             [sys.executable, "-m", "egorear_tpu_torch.run", "test", "--config",
