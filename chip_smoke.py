@@ -29,7 +29,8 @@ beside the card's name and power limit:
   5. take one fp32 training step (256 px, batch 2, TF32 off) through the
      plain versions and one through the kernels from the same state, the
      kernel step's ReLUs and max-pools on the plain step's side of their
-     kink (:func:`pinned_relus`), and compare gradients, parameters and BN
+     kink (:func:`pinned_relus`) and its anchors the plain step's
+     (:func:`pinned_anchors`), and compare gradients, parameters and BN
      running stats;
   6. train the flagship as users would (``entry.build_train``, bf16-mixed,
      batch 32, the configured schedule) and check that every step launched
@@ -202,6 +203,25 @@ so these are checks and memory, not speed across cards):
      the 512-channel head, one b2 fp32 step at M = 2, its build time and
      per-rank peak beside phase 15b's one-process step.
 
+The tools that drive the main path (``egorear_tpu_torch/tools/``), each
+through its own function, the launch counts from 0 over each:
+
+  18. a: ``profile_fwd`` (b64 bf16: ms/forward, frames/s, a torch.profiler
+     trace of 3 forwards): its kernel table names the lazy forward kernel,
+     the launches are 7 a forward, and its scope buckets sum to the
+     profiler's device total within TOOL_SUM_TOL; b: ``profile_train`` (b32
+     bf16-mixed, the JAX tools' step): 7 + 7 launches a step, a finite
+     loss, the forward / backward / optimizer split within TOOL_SUM_TOL of
+     the device total; c: ``overfit_probe`` on phase 12's tree (256 px, b8,
+     OVERFIT_STEPS fp32 steps, 7 + 7 launches each): ``final_mpjpe`` falls,
+     then one kept step of the perturbed model held against the plain
+     versions (:func:`kept_step`'s hold); d: ``run_curriculum`` in a
+     subprocess (CURRICULUM_ARGS: both stage-1 pairs, stage 2, its test
+     and its occlusion split on the train and validation frames, stage 3
+     and its test, each a CLI subprocess on the card): both test JSONs
+     parse and both occlusion-split JSONs hold the 8 ``_mse_pts2d`` keys
+     (its launches are the subprocesses'; phase 12 holds the CLI's).
+
 Every phase that drives the main path sets the launch counts of all four
 kernels to 0 just before it and reads them just after.
 
@@ -229,6 +249,8 @@ import tempfile
 import time
 
 import torch
+
+from egorear_tpu_torch.tools.profile_fwd import device_table, kernel_time, profiled
 
 # Published H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -1203,50 +1225,6 @@ def serve(card, model, rig, lazy: bool, name: str, tag: str,
     return launches
 
 
-# The __global__ functions of each csrc source, as the profiler names them:
-# a symbol that starts at a word boundary and matches the pattern (the
-# backward sources may launch several kernels, all named <source>_*kernel).
-KERNEL_SYMBOLS = {
-    "lazy_deform_sample": r"lazy_deform_sample_kernel\b",
-    "lazy_deform_sample_bwd": r"lazy_deform_sample_bwd_\w*kernel\b",
-    "deform_sample": r"deform_sample_kernel\b",
-    "deform_sample_bwd": r"deform_sample_bwd_\w*kernel\b",
-}
-
-
-def kernel_time(events, name: str) -> float:
-    """Device time (us) of the __global__ functions of csrc source ``name``
-    in the profiler's events: ``deform_sample`` does not count the lazy
-    kernels, nor a forward key its backward's."""
-    pattern = re.compile(r"(?<![A-Za-z0-9_])" + KERNEL_SYMBOLS[name])
-    return sum(e.self_device_time_total for e in events if pattern.search(e.key))
-
-
-def profiled(fn, n: int):
-    """torch.profiler over ``n`` calls of ``fn``: the profiler's events and
-    the device's busy time per call in ms (0 when it saw no device time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    return events, sum(e.self_device_time_total for e in events) / n / 1e3
-
-
-def _device_table(events, busy, title, path, mode):
-    """Append (or, with ``mode`` "w", write) the profiler's table by device
-    time to ``path``, when the profiler saw device time."""
-    if busy > 0:
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        with open(path, mode) as f:
-            f.write(f"{title}\n")
-            f.write(events.table(sort_by="self_device_time_total", row_limit=40))
-            f.write("\n")
-
-
 def profile_serving(model, rig, img, card, path: str, lazy: bool = True,
                     n: int = 3):
     """Device time by kernel over ``n`` serving forwards (torch.profiler);
@@ -1254,8 +1232,8 @@ def profile_serving(model, rig, img, card, path: str, lazy: bool = True,
     tag = order_tag(4, lazy)
     with torch.inference_mode():
         events, busy = profiled(lambda: model(img, rig), n)
-    _device_table(events, busy, f"{card} serving {tag}", path,
-                  "w" if lazy else "a")
+    device_table(events, busy, f"{card} serving {tag}", path,
+                 "w" if lazy else "a")
     if busy <= 0:
         print(f"{tag} profile: the profiler saw no device time | {card}")
         return
@@ -1384,14 +1362,16 @@ def pinned_relus(masks: list, flips: list | None = None):
 def compare_kernel_step(model, trainer, batch, start, want_launches):
     """One fp32 train step through the plain versions and one through the
     kernels, from the state dict ``start`` on ``batch``, the kernel step's
-    ReLUs and max-pools pinned to the plain step's (:func:`pinned_relus`);
+    ReLUs and max-pools pinned to the plain step's (:func:`pinned_relus`)
+    and its argmax and projected anchors to the plain step's
+    (:func:`pinned_anchors`);
     checks the kernel step's launches against ``want_launches``, every leaf
     gradient against TRAIN_GRAD_TOL of its scale (a leaf below the rounding
     floor against the floor), the parameters against AdamW's bound and the
     BN running stats against TRAIN_STAT_TOL. Returns both runs and the
     worst numbers, and the kernel step's peak device memory less the plain
     run's copies that it holds (``step_peak``, bytes)."""
-    runs, masks, flips = {}, [], []
+    runs, masks, flips, anchors, anchor_flips = {}, [], [], [], []
     for impl in ("plain", "kernel"):
         for m in deform_attns(model):
             m.impl = impl
@@ -1403,7 +1383,9 @@ def compare_kernel_step(model, trainer, batch, start, want_launches):
 
             gc.collect()  # the plain step's optimizer state, if a cycle holds it
             torch.cuda.reset_peak_memory_stats()
-        with pinned_relus(masks, flips if impl == "kernel" else None):
+        pin = (pinned_anchors(anchors) if impl == "plain"
+               else pinned_anchors(anchors, slice(None), anchor_flips))
+        with pinned_relus(masks, flips if impl == "kernel" else None), pin:
             metrics = trainer.train_step(batch)
         torch.cuda.synchronize()
         launched = read_launches()
@@ -1431,7 +1413,7 @@ def compare_kernel_step(model, trainer, batch, start, want_launches):
     step_peak = (torch.cuda.max_memory_allocated() - held
                  if torch.cuda.is_available() else 0)
     return dict(kernel=k, plain=pl, flips=flips, masks=masks, kink=kink,
-                step_peak=step_peak, **hold_step(k, pl))
+                anchor_flips=anchor_flips, step_peak=step_peak, **hold_step(k, pl))
 
 
 def hold_step(got: dict, want: dict, noise: dict | None = None) -> dict:
@@ -1544,7 +1526,10 @@ def kernel_step_text(r: dict, lazy: bool) -> str:
             f"{TRAIN_STAT_TOL:g}); ReLU and max-pool inputs pinned across the kink "
             f"{sum(f[0] for f in r['flips'])} in {len(r['flips'])} of "
             f"{len(r['masks'])} calls (largest {r['kink']:.3e} of its call's "
-            f"scale, tol {FWD_TOL[torch.float32]:g}); launches (fwd, bwd) "
+            f"scale, tol {FWD_TOL[torch.float32]:g}); anchors pinned to the plain "
+            f"step's: {sum(r['anchor_flips'])} elements differed in "
+            f"{sum(1 for f in r['anchor_flips'] if f)} of {len(r['anchor_flips'])} "
+            f"calls; launches (fwd, bwd) "
             f"({k['launched'][fwd]}, {k['launched'][bwd]})")
 
 
@@ -1843,8 +1828,8 @@ def phase_train(card, profile: str | None, lazy: bool = True):
           f"{launches[fwd]}, {bwd} {launches[bwd]} = {steps} x "
           f"{launches_per_forward()}, other kernels 0 | {card}", flush=True)
     if profile:
-        _device_table(run["events"], run["busy"], f"{card} training {tag}",
-                      profile, "a")
+        device_table(run["events"], run["busy"], f"{card} training {tag}",
+                     profile, "a")
     kept_step(task, trainer, batch, gen, expected_launches(lazy, 1, 1), tag, card)
     return launches
 
@@ -3925,6 +3910,163 @@ def phase_tensor_parallel(card, workdir: str, cli: dict, refs: dict) -> dict:
 
 
 
+# Phase 18: the tools that drive the main path (egorear_tpu_torch/tools/).
+TOOL_FWD_B, TOOL_TRAIN_B = 64, 32  # profile_fwd, profile_train: their defaults
+TOOL_TIMED, TOOL_TRACED = 10, 3  # timed calls after one warm-up, traced calls
+TOOL_SUM_TOL = 0.05  # the attributed device time against the profiler's total
+OVERFIT_B, OVERFIT_STEPS = 8, 50
+# run_curriculum: the fewest frames and epochs with which every stage fits
+# and tests (a batch of 4: stage 1 takes 2 views of 8 frames, 4 steps).
+CURRICULUM_ARGS = ["--frames", "8", "--eval-frames", "4", "--epochs", "1",
+                   "--batch-size", "4", "--occlusion", "0.25"]
+CURRICULUM_TIMEOUT = 600
+
+
+def _named_kernel(kernels: dict, name: str) -> bool:
+    """Whether a profiler table (kernel name -> us) holds a __global__
+    function of csrc source ``name``."""
+    from egorear_tpu_torch.tools.profile_fwd import kernel_pattern
+
+    pattern = kernel_pattern(name)
+    return any(pattern.search(k) and us > 0 for k, us in kernels.items())
+
+
+def _attributed(tag: str, part: str, attributed: float, busy: float) -> str:
+    """Fails unless ``attributed`` us lie within TOOL_SUM_TOL of the
+    profiler's device total ``busy``."""
+    if not (busy > 0 and abs(attributed - busy) <= TOOL_SUM_TOL * busy):
+        raise AssertionError(f"{tag} {part} {attributed:.1f} us vs the profiler's "
+                             f"device total {busy:.1f} us (tol {TOOL_SUM_TOL:g})")
+    return f"{part} {attributed / 1e3:.3f} ms = {100 * attributed / busy:.2f} % of {busy / 1e3:.3f} ms"
+
+
+def phase_tools(card, workdir: str, cli: dict) -> dict:
+    """Phase 18: profile_fwd, profile_train and overfit_probe through their
+    own functions, each with the launch counts from 0 over it, then
+    run_curriculum in a subprocess; returns each in-process tool's counts."""
+    from egorear_tpu_torch.tools import overfit_probe, profile_fwd, profile_train
+    from egorear_tpu_torch.tools.run_curriculum import test_json
+
+    lazy = kernel_names(True)
+    out = {}
+    # 18a: the forward, its kernel table and scope buckets.
+    reset_launches()
+    fwd = profile_fwd.profile_forward(TOOL_FWD_B, "bf16", TRAIN_DEVICE,
+                                      timed=TOOL_TIMED, traced=TOOL_TRACED)
+    _sync()
+    launched = read_launches()
+    want = expected_launches(True, fwd["forwards"], 0)
+    if launched != want:
+        raise AssertionError(f"[18a] {fwd['forwards']} forwards launched {launched}, "
+                             f"expected {want}")
+    if LAUNCHES_PER_LAYER and not _named_kernel(fwd["kernels"], lazy[0]):
+        raise AssertionError(f"[18a] the kernel table names no {lazy[0]}")
+    buckets = _attributed("[18a]", "scope buckets", sum(fwd["buckets"].values()),
+                          fwd["busy"])
+    print(f"[18a] profile_fwd b{TOOL_FWD_B} bf16 256px: {fwd['ms']:.3f} ms/forward, "
+          f"{fwd['fps']:.1f} frames/s (host clock, {TOOL_TIMED} forwards); "
+          f"{lazy[0]} {launched[lazy[0]]} launches = {fwd['forwards']} forwards x "
+          f"{launches_per_forward()}; {buckets}; "
+          + ", ".join(f"{k} {v / fwd['traced'] / 1e3:.3f}"
+                      for k, v in fwd["buckets"].most_common())
+          + f" ms/forward | {card}", flush=True)
+    out["profile_fwd"] = launched
+    # 18b: the train step, its forward / backward / optimizer split.
+    reset_launches()
+    train = profile_train.profile_train_step(TOOL_TRAIN_B, "bf16-mixed", TRAIN_DEVICE,
+                                             timed=TOOL_TIMED, traced=TOOL_TRACED)
+    _sync()
+    launched = read_launches()
+    want = expected_launches(True, train["steps"], train["steps"])
+    if launched != want:
+        raise AssertionError(f"[18b] {train['steps']} steps launched {launched}, "
+                             f"expected {want}")
+    if not all(math.isfinite(x) for x in train["losses"]):
+        raise AssertionError(f"[18b] loss not finite: {train['losses']}")
+    phases = train["phases"]
+    split = _attributed("[18b]", "forward + backward + optimizer",
+                        sum(phases[k] for k in ("forward", "backward", "optimizer")),
+                        train["busy"])
+    print(f"[18b] profile_train b{TOOL_TRAIN_B} bf16-mixed 256px: {train['ms']:.3f} "
+          f"ms/step (host clock, {TOOL_TIMED} steps); launches {lazy[0]} "
+          f"{launched[lazy[0]]}, {lazy[1]} {launched[lazy[1]]} = {train['steps']} x "
+          f"{launches_per_forward()}; {split}; "
+          + ", ".join(f"{k} {v / train['traced'] / 1e3:.3f}" for k, v in phases.most_common())
+          + f" ms/step; loss {train['losses'][0]:.4f} -> {train['losses'][-1]:.4f} | {card}",
+          flush=True)
+    out["profile_train"] = launched
+    # 18c: the overfit probe on phase 12's tree, then one kept step.
+    reset_launches()
+    probe = overfit_probe.overfit(cli["root"], 256, OVERFIT_B, OVERFIT_STEPS,
+                                  device=TRAIN_DEVICE, every=max(1, OVERFIT_STEPS // 5))
+    _sync()
+    launched = read_launches()
+    want = expected_launches(True, OVERFIT_STEPS, OVERFIT_STEPS)
+    if launched != want:
+        raise AssertionError(f"[18c] {OVERFIT_STEPS} steps launched {launched}, "
+                             f"expected {want}")
+    first, last = probe["records"][0], probe["records"][-1]
+    if not (math.isfinite(last[2]) and last[2] < first[2]):
+        raise AssertionError(f"[18c] final_mpjpe did not fall: {first} -> {last}")
+    step, (img, gt_pose, gt_hm) = probe["step"], probe["batch"]
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(18)
+    perturb_train_(step.model, {"img": img}, gen)
+    calls = []
+    reset_launches()
+    with kept_kernel_calls(calls):
+        step(img, gt_pose, gt_hm)
+    _sync()
+    kept = read_launches()
+    if kept != expected_launches(True, 1, 1):
+        raise AssertionError(f"[18c] the kept step launched {kept}")
+    hold_kept_calls(calls, "[18c]", card)
+    del calls
+    print(f"[18c] overfit_probe b{OVERFIT_B} fp32 256px on phase 12's tree: "
+          f"floor {probe['floor_mm']:.1f} mm; final_mpjpe {first[2]:.1f} -> "
+          f"{last[2]:.1f} mm, proposal_mpjpe {first[3]:.1f} -> {last[3]:.1f} mm, "
+          f"hm_loss {first[1]:.4f} -> {last[1]:.4f} over {OVERFIT_STEPS} steps; "
+          f"launches {lazy[0]} {launched[lazy[0]]}, {lazy[1]} {launched[lazy[1]]} "
+          f"= {OVERFIT_STEPS} x {launches_per_forward()} | {card}", flush=True)
+    out["overfit_probe"] = launched
+    del probe, step
+    # 18d: the curriculum, each stage a CLI subprocess on the card.
+    _release_cache()
+    cur = os.path.join(workdir, "curriculum")
+    log = os.path.join(workdir, "curriculum.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.run(
+            [sys.executable, "-m", "egorear_tpu_torch.tools.run_curriculum",
+             "--out", cur, "--device", TRAIN_DEVICE] + CURRICULUM_ARGS,
+            stdout=f, stderr=subprocess.STDOUT, timeout=CURRICULUM_TIMEOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[18d] run_curriculum exited {proc.returncode}:\n"
+                             + open(log).read()[-4000:])
+    tests = {s: test_json(os.path.join(cur, f"{s}.test.log"))
+             for s in ("s2_mvfex", "s3_pose3d")}
+    if not all(any(k.startswith("test/") for k in t) for t in tests.values()):
+        raise AssertionError(f"[18d] a stage test JSON did not parse: {tests}")
+    splits = {}
+    for short in ("train", "val"):
+        with open(os.path.join(cur, f"occlusion_split_s2_{short}.json")) as f:
+            splits[short] = json.load(f)
+        keys = [k for k in splits[short] if k.endswith("_mse_pts2d")]
+        if len(keys) != 8:
+            raise AssertionError(f"[18d] occlusion split {short}: keys {keys}")
+    if not os.path.exists(os.path.join(cur, "ACCURACY.md")):
+        raise AssertionError("[18d] no report")
+    print(f"[18d] run_curriculum {' '.join(CURRICULUM_ARGS)} on {TRAIN_DEVICE}: "
+          f"{seconds:.1f} s; stage 2 test/final_stereo_front_mse_pts2d "
+          f"{tests['s2_mvfex'].get('test/final_stereo_front_mse_pts2d')}, stage 3 "
+          f"test/final_mpjpe {tests['s3_pose3d'].get('test/final_mpjpe')} mm; "
+          f"occlusion split val front occluded init/final "
+          f"{splits['val'].get('front_occluded_init_mse_pts2d')}/"
+          f"{splits['val'].get('front_occluded_final_mse_pts2d')} | {card}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -4000,6 +4142,7 @@ def main() -> int:
             remat_launched = timed("16c", phase_remat, card)
             tp_launched = timed("17", phase_tensor_parallel, card, workdir, cli,
                                 dp_refs)
+            tools_launched = timed("18", phase_tools, card, workdir, cli)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[7] main-path launches: serving forward lazy_deform_sample "
@@ -4033,8 +4176,11 @@ def main() -> int:
           f"{remat_launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
           f"{remat_launched['lazy_deform_sample_bwd']}; tensor-parallel (every rank) "
           f"lazy_deform_sample {tp_launched['lazy_deform_sample']}, "
-          f"lazy_deform_sample_bwd {tp_launched['lazy_deform_sample_bwd']} | {card}",
-          flush=True)
+          f"lazy_deform_sample_bwd {tp_launched['lazy_deform_sample_bwd']}; tools "
+          + "; ".join(f"{tool} lazy_deform_sample {n['lazy_deform_sample']}, "
+                      f"lazy_deform_sample_bwd {n['lazy_deform_sample_bwd']}"
+                      for tool, n in tools_launched.items())
+          + f" | {card}", flush=True)
     # Each main path's counts, zeroed before and read after its own run;
     # ``launches`` is their sum.
     by_path = {"serving_lazy": serve[True], "serving_reference": serve[False],
@@ -4045,7 +4191,8 @@ def main() -> int:
                "cli_cache_in_memory": dp_launched["cache_in_memory"],
                "branches": branch_launched, "data_parallel": ddp_launched,
                "cli_data_parallel": ddp_cli_launched, "remat": remat_launched,
-               "tensor_parallel": tp_launched}
+               "tensor_parallel": tp_launched,
+               **{f"tools_{tool}": n for tool, n in tools_launched.items()}}
     print("[7] seconds by phase: "
           + " ".join(f"{k}={v:.1f}" for k, v in seconds.items())
           + f"; total {time.perf_counter() - t0:.1f} | {card}", flush=True)

@@ -4,6 +4,11 @@ package's ``ops/camera.py``: ``CameraRig.from_calib_file``, ``.project``,
 ``camera_model``: ``ego4view_{syn,rw}`` with all four cameras, or one stereo
 pair (``_stereo_front``, ``_stereo_back``).
 
+Beside the rig: the legacy UnrealEgo stereo projection the reference keeps
+next to its calibrated model (:func:`unrealego_project`, dispatched by
+:data:`projection_funcs`) and the Blender <-> OpenCV axis flip of camera
+poses (:func:`blender_to_opencv_extrinsics`, numpy).
+
 The synthetic rig places each camera by a fixed centimetre offset (and an
 x/y flip for the back pair). The real-world rig (``ego4view_rw*``) takes a
 per-sample device-to-camera 4x4 transform (``coord_trans_mat``, metres)
@@ -233,3 +238,71 @@ def apply_se3(mats: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     p = pts[..., None, :]  # (..., J, 1, 3)
     out = rot[..., 0] * p[..., 0] + rot[..., 1] * p[..., 1] + rot[..., 2] * p[..., 2]
     return out + mats[..., None, :3, 3]
+
+
+# The legacy UnrealEgo stereo projection (the reference's
+# utils/camera_models.py:106-157 keeps it beside the calibrated model,
+# dispatched through projection_funcs).
+
+_UNREALEGO_POLY_W2C = (
+    541.084422, 133.996745, -53.833198, 60.96083, -24.78051, 12.451492,
+    -30.240511, 26.90122, 116.38499, -133.991117, -141.904687, 184.05592,
+    107.45616, -125.552875, -55.66342, 44.209519, 18.234651, -6.410899,
+    -2.737066,
+)
+_UNREALEGO_CENTER = (511.1183388444314, 510.8730105600536)
+_UNREALEGO_SIZE = (1024, 1024)
+
+
+def unrealego_project(local_3d: torch.Tensor, local_origin=None):
+    """The hard-coded UnrealEgo stereo fisheye projection.
+
+    local_3d: (B, J, 3) device-frame points (cm); ``local_origin``, when
+    given, is added in place of the fixed stereo baseline (camera 0 at
+    x - 6 cm, camera 1 at x + 6 cm, the reference's
+    utils/camera_models.py:116-127). Returns ((B, 2, J, 2) normalised
+    coordinates clipped to [0, 1], (B, 2, J) strict in-bounds mask).
+    """
+    p = local_3d[:, None].repeat(1, 2, 1, 1)
+    if local_origin is not None:
+        p = p + local_origin
+    else:
+        offsets = torch.tensor([[-6.0, 0, 0], [6.0, 0, 0]], dtype=p.dtype,
+                               device=p.device)
+        p = p + offsets[None, :, None, :]
+
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    r = torch.clamp(torch.sqrt(x * x + y * y), min=_EPS)
+    theta = torch.atan(-z / r)
+    coeffs = _UNREALEGO_POLY_W2C
+    rho = torch.full_like(theta, coeffs[-1])
+    for a in coeffs[-2::-1]:
+        rho = rho * theta + a
+    u = (x / r * rho + _UNREALEGO_CENTER[0]) / _UNREALEGO_SIZE[1]
+    v = (y / r * rho + _UNREALEGO_CENTER[1]) / _UNREALEGO_SIZE[0]
+    pts2d = torch.stack([u, v], dim=-1)
+    in_fov = (u > 0) & (v > 0) & (u < 1) & (v < 1)
+    return pts2d.clamp(0.0, 1.0), in_fov
+
+
+# The reference's dispatch table (utils/camera_models.py:154-157).
+projection_funcs = {
+    "unrealego": unrealego_project,
+    "unrealego2": unrealego_project,
+}
+
+_BLENDER_CV_FLIP = np.diag([1.0, -1.0, -1.0, 1.0])
+
+
+def blender_to_opencv_extrinsics(mat: np.ndarray) -> np.ndarray:
+    """Blender camera pose (4x4, -Z forward / +Y up) -> OpenCV extrinsics
+    (+Z forward / -Y up): the core axis flip of the reference's converter
+    family (utils/util.py:300-471; the rest is
+    :mod:`egorear_tpu_torch.ops.extrinsics`), in float64."""
+    return np.asarray(mat, np.float64) @ _BLENDER_CV_FLIP
+
+
+def opencv_to_blender_extrinsics(mat: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`blender_to_opencv_extrinsics` (the flip is its
+    own inverse)."""
+    return np.asarray(mat, np.float64) @ _BLENDER_CV_FLIP

@@ -1,6 +1,6 @@
 """Heatmap decoding and target rendering (the JAX package's
-``ops/heatmap.py``: ``argmax_2d``, ``render_gaussian_targets`` and its
-numpy twin)."""
+``ops/heatmap.py``: ``argmax_2d``, ``soft_argmax_2d``,
+``render_gaussian_targets`` and its numpy twin)."""
 
 from __future__ import annotations
 
@@ -35,6 +35,36 @@ def argmax_2d(heatmaps: torch.Tensor, threshold: float = 0.5,
     pts2d = torch.stack([x, y], dim=-1)
     valid = maxvals >= threshold
     return pts2d, maxvals, valid
+
+
+def soft_argmax_2d(heatmaps: torch.Tensor, normalize: bool = False):
+    """Softmax-weighted expected peak location (a differentiable decode).
+
+    Args:
+      heatmaps: (..., H, W).
+      normalize: divide x by W and y by H.
+
+    Returns:
+      pts2d: (..., 2) (x, y): the expectations of the column and the row
+        index under the softmax over each map (taken in fp32, or wider for
+        wider inputs), summed from its marginals.
+      maxvals: (...,) peak values, in the heatmaps' dtype.
+    """
+    *lead, H, W = heatmaps.shape
+    flat = heatmaps.reshape(*lead, H * W)
+    maxvals = flat.max(dim=-1).values
+    wide = torch.promote_types(flat.dtype, torch.float32)
+    p = torch.softmax(flat, dim=-1, dtype=wide).reshape(*lead, H, W)
+    px = p.sum(dim=-2)  # marginal over y -> (..., W)
+    py = p.sum(dim=-1)  # marginal over x -> (..., H)
+    xs = torch.arange(W, dtype=torch.float32, device=heatmaps.device)
+    ys = torch.arange(H, dtype=torch.float32, device=heatmaps.device)
+    x = (px * xs).sum(dim=-1)
+    y = (py * ys).sum(dim=-1)
+    if normalize:
+        x = x / W
+        y = y / H
+    return torch.stack([x, y], dim=-1), maxvals
 
 
 def render_gaussian_targets(joints_2d: torch.Tensor, image_size: int = 872,

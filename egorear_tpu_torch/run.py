@@ -17,7 +17,8 @@ model state of the checkpoint at ``--ckpt_path``. Every checkpoint argument
 takes the port's ``epoch=N.pt`` or an EgoRear Lightning ``.ckpt`` (imported
 through ``train/torch_convert.py``). All 12 yamls run, the stereo-pair
 (V = 2) and real-world (``ego4view_rw*``) ones included.
-Precision ``32`` runs fp32 with TF32 off for matmuls and cuDNN convs.
+Precision ``32`` (``32-true``) runs fp32 with TF32 off for matmuls and
+cuDNN convs; every ``bf16*`` string trains bf16-mixed.
 Prints the metrics (``test``/``validate``) or ``{"predictions": path}``
 (``predict``) as JSON on stdout (rank 0).
 
@@ -55,16 +56,16 @@ from egorear_tpu_torch.data.datasets import get_dataset
 from egorear_tpu_torch.parallel import dist, tensor
 from egorear_tpu_torch.train import checkpoint as ckpt_lib
 from egorear_tpu_torch.train.tasks import TASKS, resolve_device
-from egorear_tpu_torch.train.trainer import Trainer, no_decay_mask_for
+from egorear_tpu_torch.train.trainer import FP32_PRECISIONS, Trainer, no_decay_mask_for
 from egorear_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("run")
 
 
 def set_matmul_precision(precision: str) -> None:
-    """Precision ``32`` is fp32 throughout: TF32 off for cuBLAS matmuls and
-    cuDNN convs (``bf16-mixed`` leaves PyTorch's defaults)."""
-    if str(precision) == "32":
+    """Precision ``32`` (or ``32-true``) is fp32 throughout: TF32 off for
+    cuBLAS matmuls and cuDNN convs (``bf16*`` leaves PyTorch's defaults)."""
+    if str(precision) in FP32_PRECISIONS:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     logger.info(f"precision {precision}: TF32 matmul "

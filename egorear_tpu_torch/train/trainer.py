@@ -5,14 +5,18 @@ A train step: the task's loss on the batch in train mode (BN takes batch
 statistics and updates its fp32 running stats), backward, global-norm
 clipping, AdamW with the scheduled lr, ``step += 1``.
 
-``precision``:
-  * ``"32"``: fp32 throughout.
-  * ``"bf16-mixed"``: the JAX package's explicit casts. The forward and
+``precision``, read as the JAX package's trainer reads it:
+  * ``"32"`` and ``"32-true"``: fp32 throughout.
+  * every string that starts with ``"bf16"`` (``"bf16-mixed"``, ``"bf16"``,
+    ``"bf16-true"``): the JAX package's explicit casts. The forward and
     backward run on bf16 copies of the parameters (cast inside the graph, so
     the gradients arrive on the fp32 masters in fp32) and of the batch's
     fp32 tensors; BN running stats stay fp32 buffers; the optimizer state
     and the master weights are fp32. ``torch.autocast`` is not used: it
     would keep other ops in fp32 than JAX does.
+  * anything else raises. A conscious fix: the JAX package trains fp32
+    for every other string, so ``"16-mixed"``, ``"16"`` or ``"64"`` would
+    run in another precision than the name says.
 
 The trainer is generic over the three tasks (``train/tasks.py``): it calls
 ``task.loss(batch, params, generator)``, ``task.eval_metrics`` and
@@ -105,7 +109,8 @@ from egorear_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("trainer")
 
-PRECISIONS = ("32", "bf16-mixed")
+# The fp32 strings; every string that starts with "bf16" trains bf16-mixed.
+FP32_PRECISIONS = ("32", "32-true")
 
 
 def dropout_seed(seed: int, step: int) -> int:
@@ -144,9 +149,14 @@ class TrainerConfig:
 
     def __post_init__(self):
         self.precision = str(self.precision)
-        if self.precision not in PRECISIONS:
-            raise ValueError(f"precision must be one of {PRECISIONS}, got "
-                             f"{self.precision!r}")
+        if not (self.precision in FP32_PRECISIONS or self.mixed):
+            raise ValueError(f"precision must be one of {FP32_PRECISIONS} or "
+                             f"start with 'bf16', got {self.precision!r}")
+
+    @property
+    def mixed(self) -> bool:
+        """bf16-mixed training, as the JAX package's trainer decides it."""
+        return self.precision.startswith("bf16")
 
 
 class _NullLogger:
@@ -311,7 +321,7 @@ class Trainer:
 
     @property
     def mixed(self) -> bool:
-        return self.precision == "bf16-mixed"
+        return self.cfg.mixed
 
     @property
     def is_main(self) -> bool:

@@ -68,6 +68,7 @@ from egorear_tpu_torch.ops.camera import CameraRig
 from egorear_tpu_torch.ops.deform_attn import deformable_sampling_plain
 from egorear_tpu_torch.ops.heatmap import argmax_2d
 from test_torch_port_models import random_variables
+from torch_threads import torch_threads  # noqa: F401
 
 SIZE, B, SEED, HEATMAP_BIAS = 64, 2, 1, 0.3
 HM_ATOL = 2.0 ** -7  # initial and anchor-forced refined heatmaps; measured 0.0078, <= 0.0049

@@ -9,6 +9,7 @@ is the first from 100 that passes JAX's conditioning check."""
 from __future__ import annotations
 
 from test_torch_port_branches_train import _one_torch_thread, run_step  # noqa: F401
+from torch_threads import torch_threads  # noqa: F401
 
 BRANCHES = ["1by1", "no_pred_init", "jqa_mv", "normal_mvf", "mlp_heatmap"]
 

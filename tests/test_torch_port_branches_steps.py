@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from test_torch_port_branches import NORM_SPREAD
 from test_torch_port_branches_train import _one_torch_thread, run_step  # noqa: F401
+from torch_threads import torch_threads  # noqa: F401
 
 BRANCHES = ["1by1", "hm_embed", "avgpool", "norm_mlp_pred", "normal_p3d"]
 

@@ -49,6 +49,7 @@ from egorear_tpu_torch.train.torch_convert import import_lightning_ckpt
 from egorear_tpu_torch.train.trainer import Trainer, dropout_seed
 from test_torch_port_models import random_variables
 from test_torch_port_rigs import _mvfex_cfg, check_train_step, step_case
+from torch_threads import torch_threads  # noqa: F401
 
 SIZE, B, P = 64, 2, 0.1
 SEED_QUERY_ONLY = 100

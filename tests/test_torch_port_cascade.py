@@ -32,6 +32,7 @@ from egorear_tpu_torch.models.backbone import fold_batchnorm
 from egorear_tpu_torch.ops.camera import CameraRig
 from egorear_tpu_torch.ops.heatmap import argmax_2d
 from test_torch_port_models import random_variables
+from torch_threads import torch_threads  # noqa: F401
 
 SIZE, B, SEED, HEATMAP_BIAS = 64, 2, 1, 0.3
 HM_ATOL, P3D_ATOL = 2e-5, 9e-3

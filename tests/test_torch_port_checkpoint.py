@@ -38,6 +38,7 @@ from egorear_tpu_torch.train import checkpoint, imagenet
 from egorear_tpu_torch.train.tasks import TASKS, HeatmapTask, MVFexTask, Pose3DTask
 from test_imagenet_pretrain import _torchvision_style_sd
 from test_torch_port_models import random_variables
+from torch_threads import torch_threads  # noqa: F401
 
 SIZE, B = 64, 2
 ENV = imagenet.ENV_VAR

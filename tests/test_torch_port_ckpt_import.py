@@ -49,6 +49,7 @@ from egorear_tpu_torch.train.torch_convert import (
     read_lightning_state_dict,
 )
 from test_torch_port_models import random_variables
+from torch_threads import torch_threads  # noqa: F401
 
 SIZE = 64
 METRIC_RTOL = 1e-4

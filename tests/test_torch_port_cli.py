@@ -60,6 +60,7 @@ from egorear_tpu_torch.train import checkpoint
 from egorear_tpu_torch.train.tasks import HeatmapTask
 from egorear_tpu_torch.train.trainer import CSVLogger, Trainer, TrainerConfig
 from test_torch_port_models import random_variables
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(__file__), os.pardir)
 CONFIGS = os.path.join(REPO, "configs")

@@ -20,6 +20,7 @@ import torch
 import chip_smoke
 from egorear_tpu_torch import run
 from egorear_tpu_torch.data.synthetic import make_synthetic_dataset
+from torch_threads import torch_threads  # noqa: F401
 
 CONFIGS = os.path.join(os.path.dirname(__file__), os.pardir, "configs")
 

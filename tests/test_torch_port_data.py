@@ -43,6 +43,7 @@ from egorear_tpu_torch.ops.heatmap import (
     render_gaussian_targets,
     render_gaussian_targets_np,
 )
+from torch_threads import torch_threads  # noqa: F401
 
 PTS2D_TOL = 1e-3  # px, the fp32 projections of the two frameworks
 HM_NPY_TOL = 1e-6

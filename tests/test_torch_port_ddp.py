@@ -69,6 +69,7 @@ from test_torch_port_rigs import (
     _mvfex_cfg,
     step_case,
 )
+from torch_threads import torch_threads  # noqa: F401
 
 CASES = ("stage2_v2", "stage3_v2_syn")
 ONE_PROCESS_GRAD_TOL = 1e-10  # fp64, of each leaf's scale

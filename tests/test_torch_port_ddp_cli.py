@@ -26,6 +26,7 @@ from egorear_tpu_torch import run
 from egorear_tpu_torch.data.synthetic import make_synthetic_dataset
 from egorear_tpu_torch.parallel import dist
 from egorear_tpu_torch.train import checkpoint as ckpt_lib
+from torch_threads import torch_threads  # noqa: F401
 
 CONFIGS = os.path.join(os.path.dirname(__file__), os.pardir, "configs")
 EVAL_TOL = 1e-5

@@ -41,6 +41,7 @@ from egorear_tpu_torch.ops.deform_attn import (
     deformable_sampling_plain,
     deformable_sampling_shared,
 )
+from torch_threads import torch_threads  # noqa: F401
 
 FWD_ATOL = 1e-5  # measured <= 1.8e-7
 BWD_RTOL = 1e-5  # of each gradient's largest value; measured <= 1.7e-7

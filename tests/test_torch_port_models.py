@@ -23,6 +23,7 @@ from egorear_tpu_torch.convert import from_flax, load_flax
 from egorear_tpu_torch.entry import flagship_cfg, flagship_cfg_dict
 from egorear_tpu_torch.models import backbone, layers, mvfex, pose3d
 from egorear_tpu_torch.models.configs import MVFCfg, TransformerLayerCfg
+from torch_threads import torch_threads  # noqa: F401
 
 ATOL, RTOL = 1e-5, 1e-4
 

@@ -30,6 +30,7 @@ from egorear_tpu_torch.ops.deform_attn import (
     lazy_deform_sample_plain,
 )
 from egorear_tpu_torch.ops.heatmap import argmax_2d
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

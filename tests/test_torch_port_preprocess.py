@@ -57,6 +57,7 @@ from egorear_tpu_torch.data import preprocess
 from egorear_tpu_torch.data.datasets import get_dataset
 from egorear_tpu_torch.train.tasks import MVFexTask, Pose3DTask, prepare_batch
 from test_torch_port_models import random_variables
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "configs")

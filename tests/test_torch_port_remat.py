@@ -45,6 +45,7 @@ from test_torch_port_rigs import (
     _mvfex_cfg,
     step_case,
 )
+from torch_threads import torch_threads  # noqa: F401
 
 DROPOUT = 0.1
 TERM_RTOL = 3e-7  # the step's returned loss terms are fp32

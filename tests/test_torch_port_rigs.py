@@ -61,6 +61,7 @@ from egorear_tpu_torch.ops.heatmap import argmax_2d
 from egorear_tpu_torch.train.tasks import MVFexTask, Pose3DTask
 from egorear_tpu_torch.train.trainer import Trainer
 from test_torch_port_models import random_variables
+from torch_threads import torch_threads  # noqa: F401
 
 SIZE, B, HEATMAP_BIAS = 64, 2, 0.3
 PTS2D_ATOL = 1e-5

@@ -61,6 +61,7 @@ from egorear_tpu_torch.train.tasks import (
 )
 from egorear_tpu_torch.train.trainer import Trainer, no_decay_mask_for
 from test_torch_port_models import random_variables
+from torch_threads import torch_threads  # noqa: F401
 
 SIZE, B, SEED, HEATMAP_BIAS = 64, 2, 3, 0.3
 HM_ATOL = 2e-5  # the cascade's heatmap tolerance

@@ -72,6 +72,7 @@ from test_torch_port_rigs import (
     _mvfex_cfg,
     step_case,
 )
+from torch_threads import torch_threads  # noqa: F401
 
 MIN_DIM = 256
 CLIP = 0.05  # far below both steps' gradient norms: clipping engages

@@ -40,6 +40,7 @@ from egorear_tpu_torch import entry, run
 from egorear_tpu_torch.data.synthetic import make_synthetic_dataset
 from egorear_tpu_torch.train import checkpoint as ckpt_lib
 from egorear_tpu_torch.train.tasks import MVFexTask
+from torch_threads import torch_threads  # noqa: F401
 
 CONFIGS = os.path.join(os.path.dirname(__file__), os.pardir, "configs")
 TOL = 1e-6

@@ -53,6 +53,7 @@ from egorear_tpu_torch.train.tasks import Pose3DTask
 from egorear_tpu_torch.train.trainer import Trainer
 from test_torch_port_models import init_variables, nchw, random_variables, t
 from test_torch_port_ops import _sample_case
+from torch_threads import torch_threads  # noqa: F401
 
 SIZE, B, SEED, HEATMAP_BIAS = 64, 2, 1, 0.3
 # Lazy-sampling backward: max-abs error over the largest reference value
