@@ -222,6 +222,24 @@ through its own function, the launch counts from 0 over each:
      parse and both occlusion-split JSONs hold the 8 ``_mse_pts2d`` keys
      (its launches are the subprocesses'; phase 12 holds the CLI's).
 
+The native decoder (``egorear_tpu_torch/native/``, the datasets' default,
+which phases 12-18 use but for the host path of 14a-14b):
+
+  19. a: the build in use (compiled with g++ from the checkout at first
+     use, its time) and the libjpeg and libpng it links (paths, NEEDED
+     sonames, what the process maps); b: phase 12's 872-px JPEGs and phase
+     13's 872-px PNGs (NATIVE_FRAMES frames of each, 4 views) decoded by it
+     against PIL: uint8 at 872 px bitwise, uint8 at 256 px within one LSB
+     and float32 within one LSB after normalisation, the differing pixels
+     counted; c: the loader's images/s with the yamls' 16 workers, native
+     and PIL in turns, on the ``device_preprocess`` path (uint8 at 872 px)
+     and the host path (float32 at 256 px), and each decoder alone on the
+     same files; d: phase 14's stage-2 ``fit`` (b64, ``device_preprocess``
+     at 872 px) over NATIVE_REPEAT names for each train sequence (8 steps),
+     NATIVE_FITS runs: each run's loader-bound share without the wait for
+     the first batch beside phase 14's, its lazy launches a step as phase
+     14's.
+
 Every phase that drives the main path sets the launch counts of all four
 kernels to 0 just before it and reads them just after.
 
@@ -2255,6 +2273,29 @@ def fixed_batch_rate(trainer, batch: dict) -> float:
     return n * CLI_FIXED_STEPS / (time.perf_counter() - t0)
 
 
+@contextlib.contextmanager
+def batch_clock():
+    """While open, every pass over a :class:`DataLoader` appends to the
+    yielded list its ``time.perf_counter()`` times: its start, then the
+    hand-over of each batch."""
+    from egorear_tpu_torch.data import loader as loader_mod
+
+    passes, it = [], loader_mod.DataLoader.__iter__
+
+    def timed(self):
+        times = [time.perf_counter()]
+        passes.append(times)
+        for batch in it(self):
+            times.append(time.perf_counter())
+            yield batch
+
+    loader_mod.DataLoader.__iter__ = timed
+    try:
+        yield passes
+    finally:
+        loader_mod.DataLoader.__iter__ = it
+
+
 def cli_fit(card, name: str, root: str, workdir: str, n_items: int,
             per: int, extra: list, synthetic: float | None, tag: str = "[12]",
             rates: dict | None = None):
@@ -2264,8 +2305,11 @@ def cli_fit(card, name: str, root: str, workdir: str, n_items: int,
     validation batch); prints the epoch's samples/s through the loader
     beside the same step's on one batch on the card (their ratio is the
     loader-bound share) and ``synthetic`` (the phase-8/10 rate), and puts
-    both rates and the share in ``rates[name]``. Returns the checkpoint, the
-    launch counts, the trainer and that batch."""
+    both rates, the share and the launch counts in ``rates[name]``. The
+    share is also taken without the wait for the first batch
+    (``steady_share``): every step, from the first batch's hand-over to the
+    epoch's end. Returns the checkpoint, the launch counts, the trainer and
+    that batch."""
     import csv
 
     from egorear_tpu_torch import run
@@ -2276,8 +2320,10 @@ def cli_fit(card, name: str, root: str, workdir: str, n_items: int,
     overrides = ["--model.data_root", root, "--trainer.max_epochs", "1",
                  "--trainer.save_dir", os.path.join(workdir, "cli", name),
                  "--device", TRAIN_DEVICE] + extra + CLI_OVERRIDES
-    trainer, launched, _ = cli_run(["fit", "--config", yaml_path] + overrides)
+    with batch_clock() as passes:
+        trainer, launched, _ = cli_run(["fit", "--config", yaml_path] + overrides)
     (_, steps, seconds), = trainer.epoch_times
+    times = passes[0]  # the epoch's pass; validation's come after
     want_steps = n_items // trainer.batch_size
     want = cli_launches(steps + 1, steps, per)
     if steps != want_steps or steps < 2 or launched != want:
@@ -2301,8 +2347,11 @@ def cli_fit(card, name: str, root: str, workdir: str, n_items: int,
     fixed = fixed_batch_rate(trainer, batch)
     through = steps * B / seconds
     share = 100 * max(0.0, 1 - through / fixed)
+    steady = steps * B / (times[0] + seconds - times[1])
+    steady_share = 100 * max(0.0, 1 - steady / fixed)
     if rates is not None:
-        rates[name] = dict(through=through, fixed=fixed, share=share)
+        rates[name] = dict(through=through, fixed=fixed, share=share, steady=steady,
+                           steady_share=steady_share, steps=steps, launched=launched)
     # Phase 8's stage-1 samples hold both views of a pair; the dataset's
     # items hold one, so the share is taken against the same step here.
     against = (f", phase 8/10's synthetic b64 {synthetic:.1f} samples/s"
@@ -2311,7 +2360,11 @@ def cli_fit(card, name: str, root: str, workdir: str, n_items: int,
           f"loader ({through:.1f} samples/s, {1e3 * seconds / steps:.1f} ms/step, "
           f"first step included), one batch on the card {fixed:.1f} samples/s "
           f"({B * 1e3 / fixed:.1f} ms/step){against}; loader-bound share "
-          f"{share:.1f} %; launches lazy_deform_sample "
+          f"{share:.1f} %; without the wait for the first batch "
+          f"({1e3 * (times[1] - times[0]):.1f} ms) {steady:.1f} samples/s, share "
+          f"{steady_share:.1f} %; ms between hand-overs "
+          f"{ms_list([1e3 * (b - a) for a, b in zip(times[1:], times[2:])])}; "
+          f"launches lazy_deform_sample "
           f"{launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
           f"{launched['lazy_deform_sample_bwd']} = ({steps} steps + 1 val batch) "
           f"x {per}, {steps} x {per}; {key} at the epoch's end {losses[-1]:.4f} "
@@ -2516,7 +2569,8 @@ def phase_cli_rigs(card, workdir: str, cli: dict) -> dict:
     ``.ckpt`` (the grafted leaves bitwise), with a kept step; ``test`` from
     the stage-3 result as ``.pt`` and as ``.ckpt`` (identical metrics);
     ``predict`` of the V = 2 yaml on the card vs ``--device cpu``. Returns
-    the launch counts summed over the phase."""
+    the launch counts summed over the phase, and puts the real-world tree's
+    root in ``cli["rw_root"]``."""
     from egorear_tpu_torch.data.synthetic import make_synthetic_dataset
     from egorear_tpu_torch.train import checkpoint
 
@@ -2556,6 +2610,7 @@ def phase_cli_rigs(card, workdir: str, cli: dict) -> dict:
         os.path.join(workdir, "ego4view_rw"), "rw", frames_per_seq=RW_TRAIN_FRAMES,
         eval_frames_per_seq=RW_EVAL_FRAMES, image_size=CLI_IMAGE_SIZE,
         write_heatmaps=True, draw_pose=True, seed=1)
+    cli["rw_root"] = rw  # phase 19 decodes it again
     print(f"[13b] real-world tree {RW_TRAIN_FRAMES} + 2 x {RW_EVAL_FRAMES} frames x 4 "
           f"views of {CLI_IMAGE_SIZE}-px PNGs with heatmaps and each sequence's "
           f"transforms in {time.perf_counter() - t1:.1f} s | {card}", flush=True)
@@ -2691,7 +2746,9 @@ def phase_device_preprocess(card, workdir: str, cli: dict) -> dict:
     ``device_preprocess`` at 872 px, beside phase 12's rates; a kept step
     of stage 3. 14c: a two-epoch stage-2 ``fit`` on the host path with
     ``cache_in_memory``: each epoch's rate and the cache's resident bytes.
-    Returns each path's launch counts."""
+    The host path of 14a-14b decodes with PIL, every other dataset with the
+    native loader (the default). Returns each path's launch counts and
+    14b's ``fit`` rates by yaml (:func:`cli_fit`'s)."""
     from egorear_tpu_torch import run
     from egorear_tpu_torch.config.loader import load_config
     from egorear_tpu_torch.data.datasets import get_dataset
@@ -2704,7 +2761,9 @@ def phase_device_preprocess(card, workdir: str, cli: dict) -> dict:
     B = load_config(stage2_yaml, CLI_OVERRIDES).init_args["batch_size"]
     dev_ds = get_dataset("ego4view_syn_heatmap_mvf", root, "train",
                          device_preprocess=True, image_size=CLI_IMAGE_SIZE)
-    host_ds = get_dataset("ego4view_syn_heatmap_mvf", root, "train")
+    # 14a holds the card's resize to PIL's: the host path decodes with PIL.
+    host_ds = get_dataset("ego4view_syn_heatmap_mvf", root, "train",
+                          use_native_loader=False)
     stacking = stacking_loader()
     # The device path through the stack-then-pin collation and the port's,
     # in turns.
@@ -2715,9 +2774,9 @@ def phase_device_preprocess(card, workdir: str, cli: dict) -> dict:
             ("device path, again", dev_ds, "img_u8", None),
             ("device path, stack-then-pin collation, again", dev_ds, "img_u8",
              stacking),
-            ("host path", host_ds, "img", None)):
+            ("host path, PIL decode", host_ds, "img", None)):
         passes[label] = loader_pass(ds, B, key, cls)
-    dev, host = passes["device path"]["batch"], passes["host path"]["batch"]
+    dev, host = passes["device path"]["batch"], passes["host path, PIL decode"]["batch"]
 
     # 14a: the card's preprocessing against the host path, TF32 off and on.
     std = torch.as_tensor(IMAGENET_STD, device=TRAIN_DEVICE)[:, None, None]
@@ -2848,7 +2907,7 @@ def phase_device_preprocess(card, workdir: str, cli: dict) -> dict:
           f"lazy_deform_sample_bwd {launched['lazy_deform_sample_bwd']} | {card}",
           flush=True)
     print(f"[14] phase 14 {time.perf_counter() - t0:.1f} s | {card}", flush=True)
-    return total
+    return total, rates
 
 
 # Phase 15: the model branches that no shipped yaml sets, each as its
@@ -3738,8 +3797,8 @@ def phase_tensor_parallel(card, workdir: str, cli: dict, refs: dict) -> dict:
     failed = []
     yaml_path = os.path.join(CONFIGS, "ego4view_syn_pose3d.yaml")
     base = ["--config", yaml_path, "--model.data_root", cli["root"],
-            "--device", TRAIN_DEVICE] + CLI_OVERRIDES + ["--model.batch_size",
-                                                          str(TP_CLI_B)]
+            "--device", TRAIN_DEVICE] + CLI_OVERRIDES + [
+                "--model.batch_size", str(TP_CLI_B)]
     tp_flags = ["--trainer.devices", str(TP_M), "--trainer.model_parallel", str(TP_M)]
     fit = (["fit"] + base + ["--model.heatmap_estimator_mvf_pretrained", cli["stage2"],
                              "--trainer.max_epochs", "1", "--trainer.save_dir",
@@ -4067,6 +4126,158 @@ def phase_tools(card, workdir: str, cli: dict) -> dict:
     return out
 
 
+# Phase 19: the native decoder (egorear_tpu_torch/native/) on the host:
+# NATIVE_FRAMES frames (4 views each) of phase 12's JPEG tree and of phase
+# 13's PNG tree held against PIL; the loader's passes over the stage-2
+# train set, each decoder in turns.
+NATIVE_FRAMES = 16
+NATIVE_TURNS = ("native", "PIL", "PIL", "native")
+# 19d's stage-2 fits: NATIVE_REPEAT names for each train sequence of phase
+# 12's tree (8 steps at b64), NATIVE_FITS runs.
+NATIVE_REPEAT, NATIVE_FITS = 4, 2
+
+
+def repeated_tree(root: str, out: str, copies: int) -> str:
+    """A syn tree at ``out`` whose train character holds ``copies``
+    symlinks of each of ``root``'s train sequences (the same files under
+    other names, each decoded anew); every other entry of ``root`` is
+    symlinked as it is."""
+    with open(os.path.join(root, "train.txt")) as f:
+        char = f.readline().strip()  # the syn datasets read the first line
+    os.makedirs(os.path.join(out, char))
+    for entry in os.listdir(root):
+        if entry != char:
+            os.symlink(os.path.join(root, entry), os.path.join(out, entry))
+    for seq in sorted(os.listdir(os.path.join(root, char))):
+        for c in range(copies):
+            os.symlink(os.path.join(root, char, seq),
+                       os.path.join(out, char, f"{seq}_{c}"))
+    return out
+
+
+def phase_native(card, workdir: str, cli: dict, dp_rates: dict) -> dict:
+    """Phase 19 (see the module's docstring). ``dp_rates``: phase 14's
+    ``fit`` rates, which 19d's stage-2 fits are set beside. Returns 19d's
+    launch counts."""
+    import concurrent.futures as cf
+
+    import numpy as np
+
+    from egorear_tpu_torch import native
+    from egorear_tpu_torch.config.loader import load_config
+    from egorear_tpu_torch.data.datasets import get_dataset, load_image, load_image_u8
+    from egorear_tpu_torch.data.preprocess import IMAGENET_STD
+
+    t0 = time.perf_counter()
+    # 19a: the build in use (made from the checkout's sources at first
+    # use, phase 12's decode pass), and what it links.
+    info = native.library_info()
+    built = ("was already built when this process started" if info["build_s"] is None
+             else f"compiled with g++ at first use in {info['build_s']:.1f} s")
+    print(f"[19a] image_loader.cc {built}; in use "
+          f"{os.path.relpath(info['so'])}; linked libjpeg {info['linked']['jpeg']}, "
+          f"libpng {info['linked']['png']}; NEEDED {', '.join(info['needed'])}; "
+          f"mapped in this process {', '.join(info['mapped'])}; the libjpeg took the "
+          f"jpeg62 struct (load_library checks) | {card}", flush=True)
+
+    # 19b: the native loader's images against PIL's.
+    img_tol = (1.0 / 255.0) / float(IMAGENET_STD.min()) + 1e-6
+    failed = []
+    for label, root, dataset_type in (
+            ("syn JPEG", cli["root"], "ego4view_syn_heatmap_mvf"),
+            ("rw PNG", cli["rw_root"], "ego4view_rw_heatmap_mvf")):
+        ds = get_dataset(dataset_type, root, "train", use_native_loader=False)
+        paths = [ds._img_path(f, c) for f in ds.frames[:NATIVE_FRAMES]
+                 for c in ds.cameras]
+        with cf.ThreadPoolExecutor(os.cpu_count()) as pool:
+            pil_full = np.stack(list(pool.map(
+                lambda p: load_image_u8(p, CLI_IMAGE_SIZE), paths)))
+            pil_u8 = np.stack(list(pool.map(lambda p: load_image_u8(p, 256), paths)))
+            pil_f32 = np.stack(list(pool.map(lambda p: load_image(p, 256), paths)))
+        full = native.load_u8_batch(paths, CLI_IMAGE_SIZE)
+        u8 = native.load_u8_batch(paths, 256)
+        f32 = native.load_f32_batch(paths, 256)
+        off = np.abs(u8.astype(np.int16) - pil_u8)
+        f32_err = float(np.abs(f32 - pil_f32).max())
+        full_off = int((full != pil_full).any(-1).sum())
+        print(f"[19b] {label}: {len(paths)} images of {CLI_IMAGE_SIZE} px; uint8 at "
+              f"{CLI_IMAGE_SIZE} px {full_off} pixels differ from PIL's (bitwise asked); "
+              f"uint8 at 256 px max {int(off.max())} LSB (1 allowed), "
+              f"{int((off > 0).any(-1).sum())} of {off.shape[0] * 256 * 256} pixels and "
+              f"{int((off > 0).sum())} of {off.size} values differ; float32 at 256 px "
+              f"max-abs {f32_err:.3e} (tol {img_tol:.4g}) | {card}", flush=True)
+        if full.shape != pil_full.shape or full_off or off.max() > 1 or f32_err > img_tol:
+            failed.append(label)
+    if failed:
+        raise AssertionError(f"[19b] the native loader disagrees with PIL on {failed}")
+
+    # 19c: the loader with each decoder, in turns; each decoder alone.
+    stage2_yaml = os.path.join(CONFIGS, "ego4view_syn_heatmap_mvfex-n1_jqa.yaml")
+    B = load_config(stage2_yaml, CLI_OVERRIDES).init_args["batch_size"]
+    root = cli["root"]
+    for path_label, kw, key in (
+            (f"device_preprocess path (uint8 at {CLI_IMAGE_SIZE} px)",
+             dict(device_preprocess=True, image_size=CLI_IMAGE_SIZE), "img_u8"),
+            ("host path (float32 at 256 px)", {}, "img")):
+        rates = collections.defaultdict(list)
+        for decoder in NATIVE_TURNS:
+            ds = get_dataset("ego4view_syn_heatmap_mvf", root, "train",
+                             use_native_loader=decoder == "native", **kw)
+            rates[decoder].append(loader_pass(ds, B, key)["rate"])
+        n_img = 4 * len(ds)
+        print(f"[19c] {path_label} through the loader (16 workers, B={B}, {n_img} "
+              f"images, {os.cpu_count()} CPUs), turns {' / '.join(NATIVE_TURNS)}: native "
+              f"{ms_list(rates['native'])} images/s, PIL {ms_list(rates['PIL'])} "
+              f"images/s | {card}", flush=True)
+    ds = get_dataset("ego4view_syn_heatmap_mvf", root, "train", use_native_loader=False)
+    paths = [ds._img_path(f, c) for f in ds.frames for c in ds.cameras]
+    alone = {}
+    for decoder in NATIVE_TURNS:
+        t = time.perf_counter()
+        if decoder == "native":
+            native.load_u8_batch(paths, CLI_IMAGE_SIZE, n_threads=os.cpu_count())
+        else:
+            with cf.ThreadPoolExecutor(16) as pool:
+                list(pool.map(lambda p: load_image_u8(p, CLI_IMAGE_SIZE), paths))
+        alone.setdefault(decoder, []).append(len(paths) / (time.perf_counter() - t))
+    print(f"[19c] each decoder alone on the same {len(paths)} JPEGs at {CLI_IMAGE_SIZE} "
+          f"px (no loader, no copy to the card), turns {' / '.join(NATIVE_TURNS)}: "
+          f"native in one call on {os.cpu_count()} pool threads "
+          f"{ms_list(alone['native'])} images/s, PIL on 16 Python threads "
+          f"{ms_list(alone['PIL'])} images/s | {card}", flush=True)
+
+    # 19d: phase 14's stage-2 fit over NATIVE_REPEAT times its train set,
+    # NATIVE_FITS runs; launches a step as phase 14's.
+    name = "ego4view_syn_heatmap_mvfex-n1_jqa"
+    tree = repeated_tree(root, os.path.join(workdir, "native_tree"), NATIVE_REPEAT)
+    was = dp_rates[name]
+    per = was["launched"]["lazy_deform_sample_bwd"] // was["steps"]
+    launched = dict.fromkeys(KERNELS, 0)
+    for run_i in range(NATIVE_FITS):
+        got_rates = {}
+        _, got_launched, _, _ = cli_fit(
+            card, name, tree, os.path.join(workdir, "native", str(run_i)),
+            NATIVE_REPEAT * CLI_TRAIN_FRAMES, per, cli["grafts"] + [
+                "--model.dataset_kwargs.device_preprocess", "true",
+                "--model.dataset_kwargs.image_size", str(CLI_IMAGE_SIZE)],
+            None, "[19d]", got_rates)
+        got = got_rates[name]
+        print(f"[19d] run {run_i + 1} of {NATIVE_FITS}: {name} with device_preprocess at "
+              f"{CLI_IMAGE_SIZE} px, {NATIVE_REPEAT} x phase 12's train frames: "
+              f"{got['steps']} steps; without the wait for the first batch "
+              f"{got['steady']:.1f} samples/s through the loader, one batch on the "
+              f"card {got['fixed']:.1f}, loader-bound share "
+              f"{got['steady_share']:.1f} % (epoch with its first "
+              f"batch's wait {got['share']:.1f} %); phase 14's {was['steps']}-step epoch: "
+              f"{was['steady_share']:.1f} % without that wait, {was['share']:.1f} % "
+              f"with it; launches a step {per} + {per}, as phase 14's | {card}",
+              flush=True)
+        for k, v in got_launched.items():
+            launched[k] += v
+    print(f"[19] phase 19 {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -4133,7 +4344,8 @@ def main() -> int:
             timed("11", phase_stage3_graft, card, stage2)
             cli = timed("12", phase_cli, card, workdir, rates)
             rigs_launched = timed("13", phase_cli_rigs, card, workdir, cli)
-            dp_launched = timed("14", phase_device_preprocess, card, workdir, cli)
+            dp_launched, dp_rates = timed("14", phase_device_preprocess, card,
+                                          workdir, cli)
             branch_launched = timed("15", phase_branches, card, model_locs,
                                     workdir, cli)
             ddp_launched, dp_refs = timed("16a", phase_data_parallel, card, workdir)
@@ -4143,6 +4355,7 @@ def main() -> int:
             tp_launched = timed("17", phase_tensor_parallel, card, workdir, cli,
                                 dp_refs)
             tools_launched = timed("18", phase_tools, card, workdir, cli)
+            native_launched = timed("19", phase_native, card, workdir, cli, dp_rates)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[7] main-path launches: serving forward lazy_deform_sample "
@@ -4180,7 +4393,9 @@ def main() -> int:
           + "; ".join(f"{tool} lazy_deform_sample {n['lazy_deform_sample']}, "
                       f"lazy_deform_sample_bwd {n['lazy_deform_sample_bwd']}"
                       for tool, n in tools_launched.items())
-          + f" | {card}", flush=True)
+          + f"; native-decoder CLI lazy_deform_sample "
+          f"{native_launched['lazy_deform_sample']}, lazy_deform_sample_bwd "
+          f"{native_launched['lazy_deform_sample_bwd']} | {card}", flush=True)
     # Each main path's counts, zeroed before and read after its own run;
     # ``launches`` is their sum.
     by_path = {"serving_lazy": serve[True], "serving_reference": serve[False],
@@ -4192,7 +4407,8 @@ def main() -> int:
                "branches": branch_launched, "data_parallel": ddp_launched,
                "cli_data_parallel": ddp_cli_launched, "remat": remat_launched,
                "tensor_parallel": tp_launched,
-               **{f"tools_{tool}": n for tool, n in tools_launched.items()}}
+               **{f"tools_{tool}": n for tool, n in tools_launched.items()},
+               "cli_native_decode": native_launched}
     print("[7] seconds by phase: "
           + " ".join(f"{k}={v:.1f}" for k, v in seconds.items())
           + f"; total {time.perf_counter() - t0:.1f} | {card}", flush=True)

@@ -9,17 +9,17 @@ Path grammar (the reference's ``pose_estimation/datasets/``):
     sequence ``<seqdir>_metadata.json`` with the device-to-camera 4x4
     transforms (``coord_trans_mat``).
 
-A sample is a dict of numpy arrays (and its ``frame_path``): images decoded
-with PIL, BICUBIC-resized from 872 px and ImageNet-normalised to (V, 3, S,
-S) float32; the 16-joint heatmap NPYs without Head (``[1:]``, 15 channels);
+A sample is a dict of numpy arrays (and its ``frame_path``): images decoded,
+BICUBIC-resized from 872 px and ImageNet-normalised to (V, 3, S, S)
+float32; the 16-joint heatmap NPYs without Head (``[1:]``, 15 channels);
 the 16-joint ``device_pts3d`` pose in cm. With ``render_missing_heatmaps``
 a missing NPY is rendered from the frame JSON's 2D joints
 (:func:`~egorear_tpu_torch.ops.heatmap.render_gaussian_targets_np`).
 Batching and the transfer to the card are :mod:`egorear_tpu_torch.data.loader`'s.
 
 With ``device_preprocess`` the multi-view samples hold the decoded views as
-``img_u8`` (V, S, S, 3) uint8 (PIL-resized only when S differs from the
-file's size: at ``image_size`` 872 the host just decodes) and the frame
+``img_u8`` (V, S, S, 3) uint8 (resized only when S differs from the file's
+size: at ``image_size`` 872 the host just decodes) and the frame
 JSON's 2D joints as ``joints_2d`` (V, 16, 2); no NPY is read. The task's
 ``prepare_batch`` normalises, resizes to 256 px and renders the targets on
 the batch's device (:mod:`egorear_tpu_torch.data.preprocess`).
@@ -29,8 +29,13 @@ FIRST line of its split file (``lines[0:1]``) unless ``all_split_lines``,
 and, as the JAX package's, ignores ``device_preprocess`` (its items stay
 normalised float32 at ``image_size``).
 
-Not ported: the native decoder (``use_native_loader=True``), which raises
-(ROADMAP Queue A, host decode).
+The decoder: with ``use_native_loader`` (the default, as in the JAX
+package) the native loader :mod:`egorear_tpu_torch.native` decodes, resizes
+and normalises each item's views in C++, within one LSB of PIL after a
+resize and bitwise PIL's at the file's size; with ``use_native_loader=False``
+PIL does (:func:`load_image`, :func:`load_image_u8`). Where the JAX package
+quietly falls back to PIL when its library is missing, the port raises: the
+two decoders differ by one LSB, and a run must not change decoder unseen.
 """
 
 from __future__ import annotations
@@ -112,15 +117,19 @@ class _Ego4ViewBase:
         image_size: int = 256,
         pre_shuffle: bool = False,
         render_missing_heatmaps: bool = False,
-        use_native_loader: Optional[bool] = None,
+        use_native_loader: bool = True,
         device_preprocess: bool = False,
         cache_in_memory: bool = False,
         **unused_kwargs,
     ):
+        # The native decoder, built and loaded here: RuntimeError, and no
+        # fall-back to PIL, when it cannot be.
+        self._native = None
         if use_native_loader:
-            raise NotImplementedError(
-                "use_native_loader: the native JPEG/PNG decoder is not ported "
-                "(ROADMAP Queue A, host decode); images are decoded with PIL")
+            from egorear_tpu_torch import native
+
+            native.load_library()
+            self._native = native
         # Every decoded sample stays resident (about len x sample size):
         # epochs after the first skip the decode.
         self._cache: Optional[dict] = {} if cache_in_memory else None
@@ -137,10 +146,14 @@ class _Ego4ViewBase:
 
     def _load_images(self, paths) -> np.ndarray:
         """-> (len(paths), 3, S, S) normalised float32."""
+        if self._native is not None:
+            return self._native.load_f32_batch(list(paths), self.image_size)
         return np.stack([load_image(p, self.image_size) for p in paths])
 
     def _load_images_u8(self, paths) -> np.ndarray:
         """-> (len(paths), S, S, 3) uint8."""
+        if self._native is not None:
+            return self._native.load_u8_batch(list(paths), self.image_size)
         return np.stack([load_image_u8(p, self.image_size) for p in paths])
 
     def _load_views_device(self, frame: str):

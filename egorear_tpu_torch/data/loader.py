@@ -1,14 +1,14 @@
 """Batched host loader with threaded decode and transfer to the card (the
 JAX package's ``data/loader.py``).
 
-A thread pool of ``num_workers`` decodes samples (PIL releases the GIL)
-and each worker copies its sample's arrays straight into its row of the
-batch's tensors, which lie in pinned memory when ``device`` is a CUDA
-device: the consumer's thread neither stacks nor pins a batch (a stage-2
-batch of uint8 872-px views is 584 MB). :data:`PREFETCH` batches are in
-flight beyond the one being consumed, and each batch is moved to
-``device`` one batch ahead of the consumer (``.to(device,
-non_blocking=True)`` from the pinned rows); on the CPU (or
+A thread pool of ``num_workers`` decodes samples (the native decoder and
+PIL release the GIL) and each worker copies its sample's arrays straight
+into its row of the batch's tensors, which lie in pinned memory when
+``device`` is a CUDA device: the consumer's thread neither stacks nor
+pins a batch (a stage-2 batch of uint8 872-px views is 584 MB).
+:data:`PREFETCH` batches are in flight beyond the one being consumed, and
+each batch is moved to ``device`` one batch ahead of the consumer
+(``.to(device, non_blocking=True)`` from the pinned rows); on the CPU (or
 ``device=None``) batches are host tensors. Other fields (``frame_path``)
 become lists and stay on the host.
 

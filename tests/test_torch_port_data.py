@@ -6,7 +6,8 @@ made from a seed with numpy:
   * every item of the six dataset types (``data/datasets.py``): bitwise
     ``img``, ``gt_heatmap``, ``gt_pose``, ``coord_trans_mat`` and
     ``frame_path``, with precomputed and with rendered heatmaps, on trees
-    made by the JAX generator (both sides decode with PIL);
+    made by the JAX generator (both sides decode with PIL); the port's
+    default decoder, the native loader, within one LSB of them;
   * the loader's batch-index sequence, ``__valid_n__`` and collation
     (``data/loader.py``) against the JAX loader's over 3 epochs;
   * the port's synthetic syn tree against the JAX generator's at one seed:
@@ -35,8 +36,10 @@ from egorear_tpu.data.synthetic import make_synthetic_dataset as jax_make_synthe
 from egorear_tpu.ops.camera import CameraRig as JaxCameraRig
 from egorear_tpu.ops.heatmap import render_gaussian_targets as jax_render
 from egorear_tpu.ops.heatmap import render_gaussian_targets_np as jax_render_np
+from egorear_tpu_torch import native
 from egorear_tpu_torch.data.datasets import _DATASETS, get_dataset
 from egorear_tpu_torch.data.loader import DataLoader
+from egorear_tpu_torch.data.preprocess import IMAGENET_STD
 from egorear_tpu_torch.data.synthetic import _draw_pose_image, make_synthetic_dataset
 from egorear_tpu_torch.ops.camera import CameraRig, default_calib_path
 from egorear_tpu_torch.ops.heatmap import (
@@ -143,7 +146,7 @@ def test_every_item_matches_jax(trees, dataset_type):
             kw = dict(camera_pos=camera_pos, render_missing_heatmaps=True)
             want = jax_get_dataset(dataset_type, root, split,
                                    use_native_loader=False, **kw)
-            got = get_dataset(dataset_type, root, split, **kw)
+            got = get_dataset(dataset_type, root, split, use_native_loader=False, **kw)
             assert len(got) == len(want) > 0
             for i in range(len(want)):
                 _assert_items_equal(got[i], want[i])
@@ -163,7 +166,7 @@ def test_every_item_matches_jax(trees, dataset_type):
 def test_cache_in_memory_and_refused_options(trees):
     root = trees["syn"]
     ds = get_dataset("ego4view_syn_pose3d", root, "train", cache_in_memory=True,
-                     render_missing_heatmaps=True)
+                     render_missing_heatmaps=True, use_native_loader=False)
     first = ds[1]
     again = ds[1]
     assert again is not first and again["img"] is first["img"]
@@ -173,8 +176,17 @@ def test_cache_in_memory_and_refused_options(trees):
     want = jax_get_dataset("ego4view_syn_pose3d", root, "train",
                            use_native_loader=False, render_missing_heatmaps=True)[1]
     _assert_items_equal(again, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_dataset("ego4view_syn_pose3d", root, "train", use_native_loader=True)
+    # The default decoder is the native loader, as in the JAX package: the
+    # same item but its images, which are the loader's, within one LSB of
+    # PIL's after normalisation.
+    item = get_dataset("ego4view_syn_pose3d", root, "train",
+                       render_missing_heatmaps=True)[1]
+    views = [ds._img_path(ds.frames[1], c) for c in ds.cameras]
+    np.testing.assert_array_equal(item["img"], native.load_f32_batch(views))
+    tol = (1.0 / 255.0) / float(IMAGENET_STD.min()) + 1e-6
+    assert np.abs(item["img"] - want["img"]).max() <= tol
+    _assert_items_equal({k: v for k, v in item.items() if k != "img"},
+                        {k: v for k, v in want.items() if k != "img"})
 
 
 # -- loader ----------------------------------------------------------------------

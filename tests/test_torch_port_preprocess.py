@@ -254,8 +254,9 @@ def test_device_items_match_jax(trees, dataset_type, image_size):
     root = trees[dataset_type.split("_")[1]]
     kw = dict(device_preprocess=True, image_size=image_size)
     want = jax_get_dataset(dataset_type, root, "train", use_native_loader=False, **kw)
-    got = get_dataset(dataset_type, root, "train", **kw)
-    cached = get_dataset(dataset_type, root, "train", cache_in_memory=True, **kw)
+    got = get_dataset(dataset_type, root, "train", use_native_loader=False, **kw)
+    cached = get_dataset(dataset_type, root, "train", cache_in_memory=True,
+                         use_native_loader=False, **kw)
     assert len(got) == len(want) > 0
     keys = ["img_u8", "joints_2d"] + (["gt_pose"] if "pose3d" in dataset_type else [])
     for i in range(len(want)):
@@ -275,20 +276,15 @@ def test_stage1_ignores_device_preprocess(trees):
     kw = dict(device_preprocess=True, image_size=96, render_missing_heatmaps=True)
     want = jax_get_dataset("ego4view_syn_heatmap", root, "train",
                            use_native_loader=False, **kw)
-    got = get_dataset("ego4view_syn_heatmap", root, "train", **kw)
+    got = get_dataset("ego4view_syn_heatmap", root, "train", use_native_loader=False,
+                      **kw)
     plain = get_dataset("ego4view_syn_heatmap", root, "train", image_size=96,
-                        render_missing_heatmaps=True)
+                        render_missing_heatmaps=True, use_native_loader=False)
     assert len(got) == len(want) > 0
     for i in range(len(want)):
         assert got[i]["img"].shape == (1, 3, 96, 96)  # float32 at image_size
         _assert_items_equal(got[i], want[i])
         _assert_items_equal(got[i], plain[i])
-
-
-def test_native_loader_still_refused(trees):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        get_dataset("ego4view_syn_pose3d", trees["syn"], "train", device_preprocess=True,
-                    use_native_loader=True)
 
 
 # -- the tasks on a uint8 batch ------------------------------------------------------

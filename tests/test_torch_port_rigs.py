@@ -553,7 +553,8 @@ def test_rw_pose3d_items_match_jax(rw_trees, camera_pos):
     for split in ("train", "test"):
         want = jax_get_dataset("ego4view_rw_pose3d", root, split, camera_pos=camera_pos,
                                use_native_loader=False)
-        got = get_dataset("ego4view_rw_pose3d", root, split, camera_pos=camera_pos)
+        got = get_dataset("ego4view_rw_pose3d", root, split, camera_pos=camera_pos,
+                          use_native_loader=False)
         assert len(got) == len(want) == (8 if split == "train" else 4)
         V = 4 if camera_pos == "all" else 2
         for i in range(len(want)):
