@@ -33,6 +33,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from egorear_tpu_torch.utils import trace
+
 
 # Batches being decoded beyond the one the consumer holds.
 PREFETCH = 2
@@ -154,8 +156,12 @@ class DataLoader:
             yield queue.popleft()
 
     def _transfer(self, batch: dict) -> dict:
+        """The batch on the card; its bytes are the ``h2d_bytes`` counter of
+        the span open around the call."""
         if self.device is None or self.device.type != "cuda":
             return batch
+        trace.count("h2d_bytes", sum(v.numel() * v.element_size()
+                                     for v in batch.values() if torch.is_tensor(v)))
         return {k: v.to(self.device, non_blocking=True) if torch.is_tensor(v) else v
                 for k, v in batch.items()}
 

@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from egorear_tpu_torch.models.layers import upsample2x_align_corners
+from egorear_tpu_torch.utils import trace
 
 BN_EPS = 1e-5
 
@@ -42,23 +43,24 @@ class BatchNorm2d(nn.BatchNorm2d):
     in fp32 or the input's wider dtype, so the backward flows through the
     global statistics and every rank updates the same running stats. With
     ``replay`` (a rematerialised forward's second run) the running stats
-    are not updated again.
+    are not updated again. Every call is the program's ``norm`` span.
     """
 
     shard = None
     replay = False
 
     def forward(self, x):
-        if not self.training:
-            return super().forward(x)
-        if self.shard is not None and self.shard.world > 1:
-            return self._global_forward(x)
-        if not self.replay:
-            with torch.no_grad():
-                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-                self._update(mean, var)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        with trace.span("norm"):
+            if not self.training:
+                return super().forward(x)
+            if self.shard is not None and self.shard.world > 1:
+                return self._global_forward(x)
+            if not self.replay:
+                with torch.no_grad():
+                    var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+                    self._update(mean, var)
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                                self.eps)
 
     def _update(self, mean, var) -> None:
         m = self.momentum

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from egorear_tpu_torch.models.backbone import BackboneWithFPN
+from egorear_tpu_torch.utils import trace
 
 
 def fold_views(img: torch.Tensor) -> torch.Tensor:
@@ -63,9 +64,12 @@ class HeatmapNet(nn.Module):
 
     def forward(self, img: torch.Tensor, return_feat: bool = False):
         """img (B, V, 3, H, W) -> heatmaps (B, V, J, h, w); with
-        ``return_feat`` also the view-major features and pyramid."""
-        feats, pyramid = self.backbone_features(img)
-        heatmap = self.head(feats, img.shape[0])
+        ``return_feat`` also the view-major features and pyramid (the
+        program's ``stage1.encoder`` and ``stage1.head`` spans)."""
+        with trace.span("stage1.encoder"):
+            feats, pyramid = self.backbone_features(img)
+        with trace.span("stage1.head"):
+            heatmap = self.head(feats, img.shape[0])
         if return_feat:
             return heatmap, feats, pyramid
         return heatmap

@@ -49,8 +49,10 @@ from egorear_tpu_torch.models.layers import (
     upsample2x_align_corners,
 )
 from egorear_tpu_torch.ops.heatmap import argmax_2d
+from egorear_tpu_torch.utils import trace
 
 BFB_DIMS = 512  # channels of the ResNet-18 stride-32 map
+SIDES = ("front", "back")  # the estimators, in the order of their views
 
 
 def to_tokens(feat: torch.Tensor) -> torch.Tensor:
@@ -266,7 +268,14 @@ class MVFexRefiner(nn.Module):
         every view's features as view-major tokens; anchors_2d (B, V, J, 2);
         anchors_valid (B, V, J); bfb_mv (B, V, 512) every view's pooled
         backbone bottom; ``view`` this refiner's view. Returns per-layer
-        heatmaps (B, J, h, w) and refined features (B, Cin, h, w)."""
+        heatmaps (B, J, h, w) and refined features (B, Cin, h, w). The call
+        is the program's ``stage2.refiner`` span."""
+        with trace.span("stage2.refiner", view=view):
+            return self._refine(heatmap, frame_feat, feat_tokens, anchors_2d,
+                                anchors_valid, bfb_mv, view)
+
+    def _refine(self, heatmap, frame_feat, feat_tokens, anchors_2d,
+                anchors_valid, bfb_mv, view: int):
         B, J = heatmap.shape[0], self.num_heatmap
         x = self._queries(heatmap, bfb_mv, view)
 
@@ -393,8 +402,9 @@ class HeatmapMVFexNet(nn.Module):
             return p.mean(dim=(2, 3)).reshape(-1, B, p.shape[1]).transpose(0, 1)
 
         halves, bfbs = [], []
-        for est, views in self._estimators():
-            feat, pyr = est.backbone_features(img[:, views])
+        for side, (est, views) in zip(SIDES, self._estimators()):
+            with trace.span("stage1.encoder", side=side):
+                feat, pyr = est.backbone_features(img[:, views])
             halves.append(feat)
             bfbs.append(pooled(pyr[-1]))
         feat = halves[0] if len(halves) == 1 else torch.cat(halves, dim=0)
@@ -404,17 +414,22 @@ class HeatmapMVFexNet(nn.Module):
         """Conv-stack heads on the view-major halves (the back one None
         without a back pair) -> (B, V, J, h, w)."""
         B = feat_f.shape[0] // (2 if self.has_back else self.cfg.num_views)
-        hms = [self.conv_heatmap_head_front(feat_f)]
+        with trace.span("stage1.head", side="front"):
+            hms = [self.conv_heatmap_head_front(feat_f)]
         if feat_b is not None:
-            hms.append(self.conv_heatmap_head_back(feat_b))
+            with trace.span("stage1.head", side="back"):
+                hms.append(self.conv_heatmap_head_back(feat_b))
         hm = torch.cat([h.reshape(-1, B, *h.shape[1:]) for h in hms], dim=0)
         return hm.transpose(0, 1)
 
     def _estimator_heatmaps(self, halves, batch: int):
         """The estimators' own 1x1 heads on their halves -> (B, V, J, h, w)
         (``use_1by1_conv``)."""
-        return torch.cat([est.head(half, batch) for (est, _), half
-                          in zip(self._estimators(), halves)], dim=1)
+        hms = []
+        for side, (est, _), half in zip(SIDES, self._estimators(), halves):
+            with trace.span("stage1.head", side=side):
+                hms.append(est.head(half, batch))
+        return torch.cat(hms, dim=1)
 
     def get_anchors_2d(self, heatmap):
         """Per-view argmax anchors in [0, 1] and their validity."""

@@ -30,6 +30,7 @@ from egorear_tpu_torch.models.mvfex import (
     to_tokens,
 )
 from egorear_tpu_torch.ops.camera import CameraRig
+from egorear_tpu_torch.utils import trace
 
 HEATMAP_CONV_DIMS = 32  # the heatmap proposal's conv width (fixed, as in JAX)
 
@@ -142,7 +143,9 @@ class Pose3DLifter(nn.Module):
         (B, V, J_hm, h, w) the last refined heatmaps (read by the heatmap
         proposal only); ``coord_trans_mat`` (B, V, 4, 4) the real-world
         rig's device-to-camera transforms. Returns [proposal, refined_0, ...,
-        refined_{L-1}], each (B, J, 3) cm."""
+        refined_{L-1}], each (B, J, 3) cm. The proposal, the projection and
+        each layer are the program's ``stage3.proposal``, ``stage3.project``
+        and ``stage3.layer`` spans."""
         cfg = self.cfg
         J = cfg.num_joints
         frame_feats = frame_feats_init if self.use_pred_heatmap_init else frame_feats_final
@@ -156,11 +159,13 @@ class Pose3DLifter(nn.Module):
             memory = torch.matmul(feat_tokens, mem_kernel.to(dt)) + mem_bias.to(dt)
             mem = {}
 
-        mlp_pred = self._proposal(frame_feats_final, heatmap_final)
+        with trace.span("stage3.proposal"):
+            mlp_pred = self._proposal(frame_feats_final, heatmap_final)
         B = mlp_pred.shape[0]
 
-        anchors_2d, anchors_valid, anchors_mut = rig.project(
-            mlp_pred.detach(), coord_trans_mat)
+        with trace.span("stage3.project"):
+            anchors_2d, anchors_valid, anchors_mut = rig.project(
+                mlp_pred.detach(), coord_trans_mat)
         dtype = feat_tokens.dtype
         anchors_2d = anchors_2d.to(dtype)  # sampling positions in the activation dtype
 
@@ -174,12 +179,13 @@ class Pose3DLifter(nn.Module):
         preds = [mlp_pred]
         anchors_base = anchors_mut.detach()
         for idx in range(cfg.num_former_layers):
-            x = getattr(self, f"transformer_{idx}")(
-                x, anchors_2d, anchors_valid, memory, **mem)
-            o = getattr(self, f"post_norm_{idx}")(x)
-            for i in range(cfg.num_pred_mlp_layers - 1):
-                o = F.gelu(getattr(self, f"reg_mlp_{idx}_{i}")(o))
-            preds.append(getattr(self, f"reg_mlp_{idx}_out")(o) + anchors_base)
+            with trace.span("stage3.layer", layer=idx):
+                x = getattr(self, f"transformer_{idx}")(
+                    x, anchors_2d, anchors_valid, memory, **mem)
+                o = getattr(self, f"post_norm_{idx}")(x)
+                for i in range(cfg.num_pred_mlp_layers - 1):
+                    o = F.gelu(getattr(self, f"reg_mlp_{idx}_{i}")(o))
+                preds.append(getattr(self, f"reg_mlp_{idx}_out")(o) + anchors_base)
         return preds
 
 

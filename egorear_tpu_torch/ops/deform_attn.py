@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from egorear_tpu_torch import kernels
+from egorear_tpu_torch.utils import trace
 
 Samples = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]
 Grads = Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor,
@@ -471,12 +472,15 @@ def lazy_deform_sample(feat, loc, attn_w, pos=None, pos_block: bool = False,
     (``csrc/lazy_deform_sample.cu`` forward, ``csrc/lazy_deform_sample_bwd.cu``
     backward) or raises. ``loc`` and ``attn_w`` are cast to fp32 first, as
     in the JAX package, so bf16 sampling positions are not rounded again.
-    Each forward launch adds one to ``lazy_deform_sample.launches``.
+    Each forward launch adds one to ``lazy_deform_sample.launches``. The
+    call is the program's ``sample`` span, with ``feat``'s and ``loc``'s
+    shapes.
     """
     _check_device(feat)
-    return LazyDeformSample.apply(feat, loc.to(torch.float32),
-                                  attn_w.to(torch.float32), pos, pos_block,
-                                  plain)
+    with trace.span("sample", feat=feat, loc=loc):
+        return LazyDeformSample.apply(feat, loc.to(torch.float32),
+                                      attn_w.to(torch.float32), pos, pos_block,
+                                      plain)
 
 
 lazy_deform_sample.launches = 0
@@ -773,10 +777,13 @@ def deformable_sampling(value, loc, attn_w, plain: bool = False) -> torch.Tensor
     backward) or raises. ``loc`` and ``attn_w`` are cast to fp32 first, as in
     the JAX package's Pallas path, so bf16 sampling positions are not rounded
     again. Each forward launch adds one to ``deformable_sampling.launches``.
+    The call is the program's ``sample`` span, with ``value``'s and
+    ``loc``'s shapes.
     """
     _check_device(value, "deformable_sampling")
-    return DeformableSampling.apply(value, loc.to(torch.float32),
-                                    attn_w.to(torch.float32), plain)
+    with trace.span("sample", value=value, loc=loc):
+        return DeformableSampling.apply(value, loc.to(torch.float32),
+                                        attn_w.to(torch.float32), plain)
 
 
 deformable_sampling.launches = 0

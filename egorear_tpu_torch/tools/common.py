@@ -3,20 +3,19 @@ tools' train step (``profile_train``, ``overfit_probe``)."""
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import subprocess
 from typing import Dict, Optional
 
 import torch
 from torch.func import functional_call
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from egorear_tpu_torch.ops.metrics import mpjpe_loss
 from egorear_tpu_torch.train.optim import clip_by_global_norm_
 from egorear_tpu_torch.train.tasks import resolve_device
 from egorear_tpu_torch.train.trainer import remat_contexts
+from egorear_tpu_torch.utils import trace
 
 
 def tool_device(device: Optional[str], tool: str) -> torch.device:
@@ -43,14 +42,6 @@ def card_line(device: torch.device) -> str:
                else torch.cuda.current_device()].strip()
 
 
-@contextlib.contextmanager
-def phase(name: str):
-    """A ``phase::<name>`` profiler range (``profile_fwd.phase_split`` reads
-    them); costs next to nothing when no profiler runs."""
-    with record_function(f"phase::{name}"):
-        yield
-
-
 class ProbeStep:
     """The JAX tools' train step on the cascade ``model`` (train mode, BN
     running stats updated): loss ``0.1 * sum_i mpjpe_loss(preds_3d[i]) +
@@ -62,9 +53,11 @@ class ProbeStep:
     With a ``precision`` that starts with ``bf16`` the forward and backward
     run on bf16 copies of the parameters and the image, as the JAX tools
     cast them (fp32 masters, optimizer state and BN running stats; the
-    targets stay fp32). The forward, the backward and the update each run
-    in a ``phase::`` profiler range. ``remat`` recomputes the loss's
-    activations in the backward (the JAX tool's ``jax.checkpoint``).
+    targets stay fp32). The step opens the program's spans as
+    :meth:`~egorear_tpu_torch.train.trainer.Trainer.train_step` does
+    (``train.step`` with ``train.backward``, ``train.reduce``, ``train.clip``
+    and ``train.optimizer``). ``remat`` recomputes the loss's activations in
+    the backward (the JAX tool's ``jax.checkpoint``).
     """
 
     def __init__(self, model, rig, lr: float = 1e-3,
@@ -96,24 +89,29 @@ class ProbeStep:
     def __call__(self, img, gt_pose, gt_heatmap) -> Dict[str, torch.Tensor]:
         """One step; returns the loss and the :meth:`loss` terms (0-d,
         detached, not synchronised)."""
+        with trace.span("train.step"):
+            return self._step(img, gt_pose, gt_heatmap)
+
+    def _step(self, img, gt_pose, gt_heatmap):
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        with phase("forward"):
-            if self.remat:  # BN stats updated once, as jax.checkpoint's
-                gen = torch.Generator(device=img.device)
-                loss, aux = checkpoint(
-                    self.loss, img, gt_pose, gt_heatmap, use_reentrant=False,
-                    context_fn=functools.partial(remat_contexts, self.model, gen))
-            else:
-                loss, aux = self.loss(img, gt_pose, gt_heatmap)
-        with phase("backward"):
+        if self.remat:  # BN stats updated once, as jax.checkpoint's
+            gen = torch.Generator(device=img.device)
+            loss, aux = checkpoint(
+                self.loss, img, gt_pose, gt_heatmap, use_reentrant=False,
+                context_fn=functools.partial(remat_contexts, self.model, gen))
+        else:
+            loss, aux = self.loss(img, gt_pose, gt_heatmap)
+        with trace.span("train.backward"):
             loss.backward()
-        with phase("optimizer"):
+        with trace.span("train.reduce"):
             grads = []
             for p in self.params.values():
                 if p.grad is None:  # optax sees a zero gradient
                     p.grad = torch.zeros_like(p)
                 grads.append(p.grad)
+        with trace.span("train.clip"):
             clip_by_global_norm_(grads, 5.0)
+        with trace.span("train.optimizer"):
             self.optimizer.step()
         return {"loss": loss.detach(), **{k: v.detach().float() for k, v in aux.items()}}

@@ -1,7 +1,7 @@
 """Profile the flagship 4-view forward (the JAX package's
 ``tools/profile_fwd.py``): steady-state ms/forward and frames/s, then a
 ``torch.profiler`` trace of a few forwards, its device time by kernel
-(top-k by share) and by model scope.
+(top-k by share) and by the program's spans.
 
     python -m egorear_tpu_torch.tools.profile_fwd [batch] [dtype] [--submodules]
         [--image-size 256] [--device cpu]
@@ -13,16 +13,16 @@ and the tables its operators' self times). The model is the flagship as
 mode. ``--submodules`` times stage 1 (the backbones and the initial heads),
 stage 1 + MVFex, and the whole cascade instead, as three separate calls.
 
-The scope buckets are the JAX tool's: ``backbone.resnet``,
-``backbone.fpn``, ``refiner.deform_attn`` (the refiners' deformable
-cross-attention), ``refiner.ff+heads`` (the rest of the refiners),
-``pose3d.deform_attn``, ``pose3d.other``, ``stage2.conv_heads`` (the
-initial conv-stack heads) and ``other/unattributed`` (the argmax anchors
-and the glue between modules). The tool opens a ``record_function`` range
-(``scope::<bucket>``) from forward hooks on each bucket's modules while it
-traces; the model code holds no span. A device kernel goes to the innermost
-range open on the host when it was launched; in a backward (``profile_train``)
-to the range of the forward operator whose autograd node launched it.
+The buckets are the program's own spans (``egorear_tpu_torch.utils.trace``,
+on while the profiler records, each an ``egorear::<name>`` range in the
+trace): ``stage1.encoder``, ``stage1.head`` (the initial conv-stack heads),
+``stage2.refiner``, ``sample`` (the deformable sampling calls of the refiners
+and the lifting layers), ``stage3.proposal``, ``stage3.project``,
+``stage3.layer``, in training also ``norm``, and ``other/unattributed`` (the
+argmax anchors and the glue between modules). A device kernel goes to the
+innermost span open on the host when it was launched; in a backward
+(``profile_train``) to the span of the forward operator whose autograd node
+launched it.
 
 This module also holds the trace aggregation that ``chip_smoke.py --profile``
 prints (:func:`kernel_time`, :func:`profiled`, :func:`device_table`).
@@ -32,16 +32,16 @@ from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
 import os
 import re
 import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from egorear_tpu_torch.tools.common import card_line, synchronize, tool_device
+from egorear_tpu_torch.utils import trace as trace_spans
 
 # The __global__ functions of each csrc source, as the profiler names them:
 # a symbol that starts at a word boundary and matches the pattern (the
@@ -91,51 +91,19 @@ def device_table(events, busy, title, path, mode):
             f.write("\n")
 
 
-# -- model scopes ---------------------------------------------------------------
+# -- the program's spans ------------------------------------------------------------
 
-# (module path pattern, bucket); the innermost open range wins.
-SCOPES = (
-    (r"\.encoder\.resnet$", "backbone.resnet"),
-    (r"\.encoder\.fpn$", "backbone.fpn"),
-    (r"^heatmap_estimator\.refiners\.\d+$", "refiner.ff+heads"),
-    (r"^heatmap_estimator\.refiners\.\d+\..*\.cross_attn$", "refiner.deform_attn"),
-    (r"^heatmap_estimator\.conv_heatmap_head_\w+$", "stage2.conv_heads"),
-    (r"^pose3d_estimator$", "pose3d.other"),
-    (r"^pose3d_estimator\..*\.cross_attn$", "pose3d.deform_attn"),
-)
+# The program's spans (``egorear_tpu_torch.utils.trace``) under a forward,
+# and what no such span covers; a kernel goes to the innermost one open
+# when it was launched. A training forward adds ``norm``.
 UNATTRIBUTED = "other/unattributed"
-BUCKETS = tuple(dict.fromkeys(b for _, b in SCOPES)) + (UNATTRIBUTED,)
-SCOPE, PHASE = "scope::", "phase::"
+BUCKETS = ("stage1.encoder", "stage1.head", "stage2.refiner", "sample",
+           "stage3.proposal", "stage3.project", "stage3.layer", UNATTRIBUTED)
+# The step's spans, each the phase of the operators that start inside it.
+PHASES = {"train.step": "forward", "train.backward": "backward",
+          "train.reduce": "optimizer", "train.clip": "optimizer",
+          "train.optimizer": "optimizer"}
 _BACKWARD_NODE = "autograd::engine::evaluate_function"
-
-
-@contextlib.contextmanager
-def scope_ranges(model: torch.nn.Module):
-    """Inside the block every module of a bucket (:data:`SCOPES`, on
-    ``model``'s module paths) runs its forward in a ``scope::<bucket>``
-    ``record_function`` range, opened and closed by forward hooks."""
-    handles = []
-    for name, module in model.named_modules():
-        bucket = next((b for pattern, b in SCOPES if re.search(pattern, name)), None)
-        if bucket is None:
-            continue
-        opened = []
-
-        def enter(mod, args, bucket=bucket, opened=opened):
-            rf = record_function(SCOPE + bucket)
-            rf.__enter__()
-            opened.append(rf)
-
-        def leave(mod, args, out, opened=opened):
-            opened.pop().__exit__(None, None, None)
-
-        handles.append(module.register_forward_pre_hook(enter))
-        handles.append(module.register_forward_hook(leave, always_call=True))
-    try:
-        yield
-    finally:
-        for h in handles:
-            h.remove()
 
 
 def trace(fn, n: int, device: torch.device):
@@ -153,12 +121,12 @@ def trace(fn, n: int, device: torch.device):
 
 
 def _annotation(e) -> bool:
-    return e.name.startswith((SCOPE, PHASE))
+    return e.name.startswith(trace_spans.PREFIX)
 
 
 def op_work(prof, device: torch.device):
     """[(host operator event, {kernel name: us})]: on CUDA the device time of
-    the kernels each operator launched (a ``scope::`` range itself holds the
+    the kernels each operator launched (a span's range itself holds the
     launches made directly under it, as the ctypes-bound sampling kernels'),
     on the CPU each operator's self time."""
     out = []
@@ -168,7 +136,7 @@ def op_work(prof, device: torch.device):
         if device.type == "cuda":
             work = collections.Counter()
             for k in e.kernels:
-                if not k.name.startswith((SCOPE, PHASE)):  # not a range's device span
+                if not k.name.startswith(trace_spans.PREFIX):  # not a span's device range
                     work[k.name] += k.duration
         elif _annotation(e):
             continue
@@ -185,28 +153,37 @@ def _ancestor(e, test):
     return e
 
 
+def _span(e):
+    """The name of the program's span that ``e`` is the range of, or None."""
+    prefix = trace_spans.PREFIX
+    return e.name[len(prefix):] if e.name.startswith(prefix) else None
+
+
 def _scope_of(e):
-    hit = _ancestor(e, lambda p: p.name.startswith(SCOPE))
-    return hit.name[len(SCOPE):] if hit is not None else None
+    """The innermost of the program's spans under a forward that holds
+    ``e`` (None where there is none)."""
+    hit = _ancestor(e, lambda p: _span(p) not in (None, "forward", *PHASES))
+    return _span(hit) if hit is not None else None
 
 
 def aggregate(prof, device: torch.device) -> dict:
-    """The trace by kernel, by scope bucket, by phase and by (phase,
+    """The trace by kernel, by span bucket, by phase and by (phase,
     bucket), in us over the whole trace: ``{"total", "busy", "kernels",
-    "buckets", "phases", "phase_buckets"}`` (``busy``: :func:`busy_us`). A backward operator takes the scope of the
-    forward operator that made its autograd node (the same sequence
-    number); an operator takes the ``phase::`` range whose host interval
-    holds its start (the backward may run on another thread);
-    ``unattributed`` where none does."""
+    "buckets", "phases", "phase_buckets"}`` (``busy``: :func:`busy_us`). A
+    backward operator takes the bucket of the forward operator that made its
+    autograd node (the last to start with its sequence number); an operator takes the phase
+    of the innermost step span (:data:`PHASES`) whose host interval holds
+    its start (the backward may run on another thread); ``unattributed``
+    where none does."""
     work = op_work(prof, device)
     events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-    forward_scope = {}
-    for e in events:
+    forward_scope = {}  # the last to start wins: ops before it peek its number
+    for e in sorted(events, key=lambda e: e.time_range.start):
         if (e.sequence_nr >= 0 and not _annotation(e)
                 and _ancestor(e, lambda p: p.name.startswith(_BACKWARD_NODE)) is None):
-            forward_scope.setdefault(e.sequence_nr, _scope_of(e))
-    phases = sorted((e.time_range.start, e.time_range.end, e.name[len(PHASE):])
-                    for e in events if e.name.startswith(PHASE))
+            forward_scope[e.sequence_nr] = _scope_of(e)
+    steps = sorted((e.time_range.start, e.time_range.end, PHASES[_span(e)])
+                   for e in events if _span(e) in PHASES)
     kernels, phase_buckets = collections.Counter(), collections.Counter()
     for e, k in work:
         kernels.update(k)
@@ -215,7 +192,7 @@ def aggregate(prof, device: torch.device) -> dict:
         if scope is None and node is not None:
             scope = forward_scope.get(node.sequence_nr)
         start = e.time_range.start
-        phase = next((name for lo, hi, name in phases if lo <= start < hi),
+        phase = next((name for lo, hi, name in reversed(steps) if lo <= start < hi),
                      "unattributed")
         phase_buckets[(phase, scope or UNATTRIBUTED)] += sum(k.values())
     buckets, by_phase = collections.Counter(), collections.Counter()
@@ -230,7 +207,7 @@ def aggregate(prof, device: torch.device) -> dict:
 def busy_us(prof, device: torch.device) -> float:
     """The trace's device time summed over the device's own events (CPU:
     the operators' self time), what :func:`aggregate`'s attribution must
-    account for. A ``record_function`` range (the tool's, or the
+    account for. A ``record_function`` range (a span's, or the
     optimizer's ``Optimizer.step#...``) also leaves a span of its name on
     the device's timeline: those are left out."""
     events = prof.events()
@@ -244,7 +221,7 @@ def busy_us(prof, device: torch.device) -> float:
 
 def print_tables(agg: dict, n: int, unit: str, card: str, top: int = 40,
                  min_pct: float = 0.25) -> None:
-    """The kernel table (top-k by share, down to ``min_pct`` %) and the scope
+    """The kernel table (top-k by share, down to ``min_pct`` %) and the span
     buckets, per ``unit`` (``n`` of them in the trace)."""
     total = agg["total"]
     what, rows = (("CPU operator self time", "operator") if card == "cpu"
@@ -256,7 +233,7 @@ def print_tables(agg: dict, n: int, unit: str, card: str, top: int = 40,
         if pct < min_pct:
             break
         print(f"{us / n:>12.1f}  {pct:>5.1f}  {name[:110]}")
-    print(f"\nscope buckets (us/{unit}):")
+    print(f"\nspan buckets (us/{unit}):")
     for name, us in agg["buckets"].most_common():
         print(f"{us / n:>12.1f}  {100.0 * us / total:>5.1f}  {name}")
 
@@ -295,7 +272,7 @@ def profile_forward(batch: int = 64, dtype: str = "bf16", device=None,
                     image_size: int = 256, timed: int = 10, traced: int = 3,
                     quiet: bool = False) -> dict:
     """Time ``timed`` forwards after one warm-up, then trace ``traced`` more
-    in the scope ranges; prints the lines and returns ``{ms, fps,
+    (the program's spans on); prints the lines and returns ``{ms, fps,
     forwards, traced, card, total, kernels, buckets, phases}`` (us over the
     trace)."""
     device = tool_device(device, "profile_fwd")
@@ -311,8 +288,7 @@ def profile_forward(batch: int = 64, dtype: str = "bf16", device=None,
             print(f"steady state: {ms:.3f} ms/forward  {batch * 1e3 / ms:.1f} "
                   f"frames/s (batch {batch}, {dtype}, {image_size} px) | {card}",
                   flush=True)
-        with scope_ranges(model):
-            prof = trace(forward, traced, device)
+        prof = trace(forward, traced, device)
     agg = aggregate(prof, device)
     if not quiet:
         print_tables(agg, traced, "forward", card)

@@ -4,8 +4,8 @@ tools.common.ProbeStep`: loss and gradient through the lazy sampling
 kernels, clipping, AdamW; fp32 masters, bf16 compute in ``bf16-mixed``, BN
 running stats updated), its steady-state ms/step, then a ``torch.profiler``
 trace of a few steps: device time by kernel, the forward / backward /
-optimizer split and the scope buckets of ``profile_fwd`` (``fwd+`` and
-``bwd`` of each).
+optimizer split (by the program's ``train.*`` spans) and the span buckets
+of ``profile_fwd`` (``fwd+`` and ``bwd`` of each).
 
     python -m egorear_tpu_torch.tools.profile_train [batch] [precision] [--remat]
         [--image-size 256] [--device cpu]
@@ -24,13 +24,7 @@ import collections
 import torch
 
 from egorear_tpu_torch.tools.common import ProbeStep, card_line, tool_device
-from egorear_tpu_torch.tools.profile_fwd import (
-    aggregate,
-    print_tables,
-    scope_ranges,
-    steady_ms,
-    trace,
-)
+from egorear_tpu_torch.tools.profile_fwd import aggregate, print_tables, steady_ms, trace
 
 
 def step_batch(batch: int, image_size: int, device: torch.device, seed: int = 0):
@@ -59,8 +53,8 @@ def train_step(batch: int, precision: str, device, image_size: int = 256,
 def profile_train_step(batch: int = 32, precision: str = "bf16-mixed",
                        device=None, image_size: int = 256, remat: bool = False,
                        timed: int = 10, traced: int = 3, quiet: bool = False) -> dict:
-    """Time ``timed`` steps after one warm-up, then trace ``traced`` more in
-    the scope ranges; prints the lines and returns ``{ms, steps, traced,
+    """Time ``timed`` steps after one warm-up, then trace ``traced`` more
+    (the program's spans on); prints the lines and returns ``{ms, steps, traced,
     card, losses, total, kernels, buckets, phases}`` (us over the trace;
     ``buckets`` keyed ``fwd+ <bucket>`` and ``bwd <bucket>``)."""
     device = tool_device(device, "profile_train")
@@ -76,8 +70,7 @@ def profile_train_step(batch: int = 32, precision: str = "bf16-mixed",
         print(f"steady state: {ms:.3f} ms/step  {batch * 1e3 / ms:.1f} samples/s "
               f"(batch {batch}, {precision}{', remat' if remat else ''}, "
               f"{image_size} px) | {card}", flush=True)
-    with scope_ranges(step.model):
-        prof = trace(one, traced, device)
+    prof = trace(one, traced, device)
     agg = aggregate_step(prof, device)
     if not quiet:
         print_tables(agg, traced, "step", card)
@@ -91,7 +84,8 @@ def profile_train_step(batch: int = 32, precision: str = "bf16-mixed",
 def aggregate_step(prof, device) -> dict:
     """:func:`~egorear_tpu_torch.tools.profile_fwd.aggregate` of a train
     step's trace with each scope bucket split into its forward (``fwd+``)
-    and backward (``bwd``) share, and the update as ``fwd+ optimizer``."""
+    and backward (``bwd``) share, and the update (the ``train.reduce``,
+    ``train.clip`` and ``train.optimizer`` spans) as ``fwd+ optimizer``."""
     agg = aggregate(prof, device)
     split = collections.Counter()
     for (phase, bucket), us in agg["phase_buckets"].items():

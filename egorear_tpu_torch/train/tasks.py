@@ -48,6 +48,7 @@ from egorear_tpu_torch.train.imagenet import (
     graft_imagenet_backbones,
     load_imagenet_resnet18,
 )
+from egorear_tpu_torch.utils import trace
 
 CM2MM = 10.0
 
@@ -60,12 +61,14 @@ def prepare_batch(batch: dict) -> dict:
     normalised 256-px ``img`` and, unless the batch has a ``gt_heatmap``,
     the 15 Gaussian targets without Head are rendered from ``joints_2d``,
     all on the batch's device (:mod:`egorear_tpu_torch.data.preprocess`).
-    Host-prepared batches pass through untouched."""
+    Host-prepared batches pass through untouched; a uint8 batch's
+    preparation is the program's ``prepare_batch`` span."""
     if "img_u8" not in batch:
         return batch
-    out = {k: v for k, v in batch.items() if k not in ("img_u8", "joints_2d")}
-    out.update(preprocess_batch_device(
-        batch["img_u8"], None if "gt_heatmap" in batch else batch.get("joints_2d")))
+    with trace.span("prepare_batch"):
+        out = {k: v for k, v in batch.items() if k not in ("img_u8", "joints_2d")}
+        out.update(preprocess_batch_device(
+            batch["img_u8"], None if "gt_heatmap" in batch else batch.get("joints_2d")))
     return out
 
 
@@ -180,11 +183,13 @@ class _Task:
     def _batch_forward(self, batch: dict, params=None, generator=None):
         """``(prepared batch, model outputs)``: every path that reads a
         batch's ``img`` or ``gt_heatmap`` takes it from here, after
-        :func:`prepare_batch`."""
-        batch = prepare_batch(batch)
-        img, *ctm = self._forward_args(batch)
-        ctm = ctm[0] if ctm else None
-        return batch, self.forward(img, params, ctm, generator)
+        :func:`prepare_batch`. The call is the program's ``forward`` span
+        (top level in evaluation)."""
+        with trace.span("forward"):
+            batch = prepare_batch(batch)
+            img, *ctm = self._forward_args(batch)
+            ctm = ctm[0] if ctm else None
+            return batch, self.forward(img, params, ctm, generator)
 
     @torch.no_grad()
     def _eval_forward(self, batch: dict):

@@ -31,7 +31,8 @@ the loader's length, ``train/<k>`` rows in a Lightning-layout
 ``metrics.csv`` (:class:`CSVLogger`), validation and ``epoch=N.pt``
 checkpoints at their cadences, resume, a non-finite guard
 (``debug_nans``) and a ``torch.profiler`` trace of the first
-``profile_steps`` steps.
+``profile_steps`` steps, with the program's spans of those steps
+(:mod:`egorear_tpu_torch.utils.trace`).
 
 Dropout (``ffn_drop``, ``mlp_dropout``) draws its masks in each step from a
 generator on the model's device seeded from ``seed + 1`` and the step count
@@ -105,6 +106,7 @@ from egorear_tpu_torch.train.optim import (
     make_lr_schedule,
     make_optimizer,
 )
+from egorear_tpu_torch.utils import trace
 from egorear_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("trainer")
@@ -393,12 +395,19 @@ class Trainer:
         """One optimizer step on ``batch`` (data-parallel: this rank's rows
         of the global batch); returns the loss terms of this step's forward
         (data-parallel: averaged over the data group) and the lr it used
-        (0-d tensors, not synchronised)."""
+        (0-d tensors, not synchronised). The step is the program's
+        ``train.step`` span (its item the step count) with the children
+        ``forward``, ``train.backward``, ``train.reduce`` (the zero-fill
+        and the all-reduce), ``train.clip`` and ``train.optimizer``."""
         if self.optimizer is None:
             raise RuntimeError("call init_state(steps_per_epoch) first")
         if not self.shard.active:
             raise RuntimeError("this rank is idle: the global batch leaves it "
                                "no rows")
+        with trace.span("train.step", item=self.step):
+            return self._train_step(batch)
+
+    def _train_step(self, batch: dict) -> Dict[str, torch.Tensor]:
         model = self.task.model.train()
         named = dict(model.named_parameters())
         gen = self.dropout_generator()
@@ -418,26 +427,30 @@ class Trainer:
                     context_fn=functools.partial(remat_contexts, model, gen))
             else:
                 loss, metrics = loss_fn(batch)
-            loss.float().backward()
+            with trace.span("train.backward"):
+                loss.float().backward()
         # A parameter that no path reaches gets grad None, and AdamW would
         # then skip its moments and its weight decay; optax sees a zero grad.
         # Zero-filled before the average, so every rank reduces the same
         # buffers (a zero averages to zero).
-        sharded = tensor.placements(model)
-        grads, slices = [], []
-        for n, p in named.items():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            (slices if n in sharded else grads).append(p.grad)
-        if self.shard.collective:
-            dist.all_reduce_mean_(grads, self.shard, grid=True)
-            dist.all_reduce_mean_(slices, self.shard)
-        clip_by_global_norm_(grads, self.gradient_clip_val, slices,
-                             self.shard.model_group)
-        lr = self.lr_schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr * group["lr_scale"]
-        self.optimizer.step()
+        with trace.span("train.reduce"):
+            sharded = tensor.placements(model)
+            grads, slices = [], []
+            for n, p in named.items():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                (slices if n in sharded else grads).append(p.grad)
+            if self.shard.collective:
+                dist.all_reduce_mean_(grads, self.shard, grid=True)
+                dist.all_reduce_mean_(slices, self.shard)
+        with trace.span("train.clip"):
+            clip_by_global_norm_(grads, self.gradient_clip_val, slices,
+                                 self.shard.model_group)
+        with trace.span("train.optimizer"):
+            lr = self.lr_schedule(self.step)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr * group["lr_scale"]
+            self.optimizer.step()
         self.step += 1
         out = {k: v.detach().float() for k, v in metrics.items()}
         if self.shard.collective:  # the global batch's loss terms
@@ -500,13 +513,18 @@ class Trainer:
         return prof
 
     def _stop_profiler(self, prof) -> None:
+        """Stop the session; write its ``trace.json`` and the program's
+        spans (``spans.json``) under ``profile/`` and log their table."""
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         prof.stop()
         out = os.path.join(self.logger.dir, "profile")
         os.makedirs(out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out, "trace.json"))
-        logger.info("profiler trace captured")
+        spans = trace.collected()
+        trace.write(os.path.join(out, "spans.json"), spans)
+        logger.info("profiler trace captured; the program's spans:\n"
+                    + trace.report(spans))
 
     def fit(self, train_dataset, val_dataset=None, resume_dir=None):
         """Train for ``max_epochs`` over shuffled ``drop_last`` batches
@@ -557,7 +575,7 @@ class Trainer:
             t0 = time.perf_counter()
             running = {}
             steps = 0
-            for batch in loader:
+            for batch in self._waited(loader):
                 metrics = _sorted(self.train_step(_array_batch(batch)))
                 steps += 1
                 if prof is not None:
@@ -572,7 +590,8 @@ class Trainer:
                         raise FloatingPointError(
                             f"non-finite loss at step {self.step}; state saved")
                 if self.step % cfg.log_every_n_steps == 0:
-                    self._log_train(metrics, epoch)
+                    with trace.span("fit.log", item=self.step):
+                        self._log_train(metrics, epoch)
                 running = metrics
             if self.device.type == "cuda":
                 torch.cuda.synchronize()
@@ -585,7 +604,8 @@ class Trainer:
                 self._log_train(running, epoch, quiet=True)
 
             if val_dataset is not None and (epoch + 1) % cfg.check_val_every_n_epoch == 0:
-                val_metrics = self._evaluate(val_dataset, mode="val")
+                with trace.span("fit.val", item=self.step):
+                    val_metrics = self._evaluate(val_dataset, mode="val")
                 self.logger.log(val_metrics, self.step, epoch)
                 if self.is_main:
                     logger.info(f"epoch {epoch} val: " + " ".join(
@@ -593,10 +613,22 @@ class Trainer:
 
             if ((epoch + 1) % cfg.ckpt_every_n_epochs == 0
                     or epoch == cfg.max_epochs - 1):
-                self._save("checkpoints", epoch)
+                with trace.span("fit.ckpt", item=self.step):
+                    self._save("checkpoints", epoch)
         if prof is not None:  # fewer steps than profile_steps
             self._stop_profiler(prof)
         return self
+
+    def _waited(self, loader):
+        """The loader's batches, each wait for one the program's top-level
+        ``fit.wait`` span (its item the step the batch feeds)."""
+        batches = iter(loader)
+        while True:
+            with trace.span("fit.wait", item=self.step):
+                batch = next(batches, None)
+            if batch is None:
+                return
+            yield batch
 
     def _log_train(self, metrics: Dict[str, torch.Tensor], epoch: int,
                    quiet: bool = False) -> None:

@@ -31,10 +31,12 @@ JAX trees and items).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -53,8 +55,33 @@ SIZES = (872, 256, 100)
 KINDS = ("jpeg_q75", "jpeg_q95", "jpeg_gray", "png_rgb", "png_rgba", "png_gray",
          "png_palette", "png_16bit")
 
+
+
+def _jax_native_available() -> bool:
+    """``jax_native.available()``, asked under a lock in the build tree.
+
+    ``available()`` runs ``make`` when the git-ignored ``.so`` is missing,
+    and any xdist worker whose tests build a JAX dataset may do so at the
+    same time, writing the file while this one loads it. A load that fails
+    while the file exists is asked again, for a while, after the writer is
+    done: only a library that is missing, or fails to load for 15 s, skips
+    the tests below."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, "build")
+    os.makedirs(build, exist_ok=True)
+    with open(os.path.join(build, "egorear_tpu_native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for _ in range(30):
+            if jax_native.available():
+                return True
+            if not os.path.exists(jax_native._SO):
+                return False
+            jax_native._tried = False  # ask again once the file is whole
+            time.sleep(0.5)
+    return False
+
+
 needs_jax_native = pytest.mark.skipif(
-    not jax_native.available(), reason="the JAX package's native loader is not built")
+    not _jax_native_available(), reason="the JAX package's native loader is not built")
 
 
 def _smooth(rng, size: int, channels: int) -> np.ndarray:

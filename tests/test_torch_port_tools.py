@@ -428,7 +428,7 @@ def test_profile_train_phases_on_cpu():
     assert total == pytest.approx(out["busy"], rel=0.05)
     assert phases.get("unattributed", 0.0) < 0.05 * total, phases
     assert out["buckets"]["fwd+ optimizer"] == pytest.approx(phases["optimizer"])
-    for b in ("backbone.resnet", "refiner.deform_attn", "pose3d.deform_attn"):
+    for b in ("stage1.encoder", "norm", "stage2.refiner", "sample", "stage3.layer"):
         assert out["buckets"][f"bwd {b}"] > 0 and out["buckets"][f"fwd+ {b}"] > 0, b
 
 
