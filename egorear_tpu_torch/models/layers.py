@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from egorear_tpu_torch.ops.deform_attn import deformable_sampling, lazy_deform_sample
+from egorear_tpu_torch.utils.constants import device_constant
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -248,8 +249,7 @@ class MSDeformAttn(nn.Module):
         offsets = self.sampling_offsets(query).reshape(B, Q, nh, P, 2)
         weights = self.attention_weights(query).reshape(B, Q, nh, P)
         weights = torch.softmax(weights, dim=-1)
-        normalizer = torch.tensor([W, H], dtype=offsets.dtype,
-                                  device=offsets.device)
+        normalizer = device_constant((W, H), offsets.dtype, offsets.device)
         return reference_points[:, :, None, None, :] + offsets / normalizer, weights
 
     def forward(self, query, reference_points, value_flat, spatial_shape):

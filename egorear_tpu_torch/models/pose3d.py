@@ -31,6 +31,7 @@ from egorear_tpu_torch.models.mvfex import (
 )
 from egorear_tpu_torch.ops.camera import CameraRig
 from egorear_tpu_torch.utils import trace
+from egorear_tpu_torch.utils.constants import device_constant
 
 HEATMAP_CONV_DIMS = 32  # the heatmap proposal's conv width (fixed, as in JAX)
 
@@ -131,8 +132,8 @@ class Pose3DLifter(nn.Module):
         if cfg.norm_mlp_pred:
             # The reference computes this and drops the result (PARITY.md):
             # the JAX package, and the port, apply it.
-            lo = torch.tensor(cfg.coor_norm_min, dtype=pred.dtype, device=pred.device)
-            hi = torch.tensor(cfg.coor_norm_max, dtype=pred.dtype, device=pred.device)
+            lo = device_constant(tuple(cfg.coor_norm_min), pred.dtype, pred.device)
+            hi = device_constant(tuple(cfg.coor_norm_max), pred.dtype, pred.device)
             pred = (hi - lo) * (pred + 1.0) / 2.0 + lo
         return pred
 

@@ -40,6 +40,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from egorear_tpu_torch.utils.constants import device_constant
+
 _EPS = 1e-12
 
 CAMERA_ORDER = (
@@ -267,8 +269,7 @@ def unrealego_project(local_3d: torch.Tensor, local_origin=None):
     if local_origin is not None:
         p = p + local_origin
     else:
-        offsets = torch.tensor([[-6.0, 0, 0], [6.0, 0, 0]], dtype=p.dtype,
-                               device=p.device)
+        offsets = device_constant(((-6.0, 0, 0), (6.0, 0, 0)), p.dtype, p.device)
         p = p + offsets[None, :, None, :]
 
     x, y, z = p[..., 0], p[..., 1], p[..., 2]

@@ -20,6 +20,7 @@ import math
 import torch
 
 from egorear_tpu_torch.ops.heatmap import soft_argmax_2d
+from egorear_tpu_torch.utils.constants import device_constant
 
 
 def _weighted(pred, target, target_weight):
@@ -56,8 +57,7 @@ def _normalized_points(pred_hm, target_pts, image_size):
     """Soft-argmax points of ``pred_hm`` and ``target_pts``, each over the
     (W, H) of ``image_size`` (H, W)."""
     pts, _ = soft_argmax_2d(pred_hm)
-    size = torch.tensor([image_size[1], image_size[0]], dtype=pts.dtype,
-                        device=pts.device)
+    size = device_constant((image_size[1], image_size[0]), pts.dtype, pts.device)
     return pts / size, target_pts / size
 
 

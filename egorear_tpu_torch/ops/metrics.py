@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from egorear_tpu_torch.utils.constants import device_constant
+
 AUC_THRESHOLDS = tuple(150.0 * i / 30 for i in range(31))
 
 
@@ -67,6 +69,6 @@ def auc_3d(pred: torch.Tensor, gt: torch.Tensor,
            thresholds=AUC_THRESHOLDS) -> torch.Tensor:
     """(B, J, 3) -> (B,) mean PCK over the 31 thresholds."""
     dist = torch.linalg.vector_norm(gt - pred, dim=-1)  # (B, J)
-    th = torch.tensor(thresholds, dtype=dist.dtype, device=dist.device)
+    th = device_constant(tuple(thresholds), dist.dtype, dist.device)
     pck = (dist[..., None] <= th).to(dist.dtype).mean(dim=-2)  # (B, T)
     return pck.mean(dim=-1)
